@@ -1,0 +1,362 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port (``raider_tpu_torch``) on one CUDA GPU.
+
+    python3 chip_smoke.py
+
+Phases, each printing one line; any failure exits non-zero:
+
+  0. device: needs CUDA; prints the card (nvidia-smi name, power limit),
+     the torch and CUDA versions and both TF32 flags (set off).
+  1. build: compiles the CUDA kernels in raider_tpu_torch/csrc/ with nvcc.
+  2. kernels vs their plain-torch twins on the card, at the main path's
+     shapes: ZTD totals (B1) on seeded 51x400x400 cubes, the brick
+     integrate (B2) on a 51x400x400 table with ~1.2M synthetic slant rays.
+  3. main path, through the user entry points: a synthetic HRRR-sized
+     weather model (50 native levels, 400x400) processed by
+     ``WeatherModel.load(device='cuda')``, then ``tropo_delay`` for a zenith
+     and a raytraced request over a ~1.2M-pixel grid at three heights. The
+     kernel launch counts of this phase must be >= 1, the cubes mostly
+     finite, and a 64x64 sub-grid of the raytraced 0 m slice must match a
+     plain-torch recomputation.
+
+The line before the last is a JSON record of the kernels; the last line is
+``{"ok": true, "device": {...}}``. Data are random, made from a fixed seed.
+"""
+
+import datetime as dt
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+SEED = 0
+B1_TOL = 2e-6      # max relative difference, kernel B1 vs twin
+B2_TOL = 1e-5      # max relative difference, kernel B2 vs twin (finite rays)
+SUBGRID_TOL = 1e-5  # metres, raytraced 0 m slice vs twin recomputation
+BBOX = [18.5, 21.5, 3.5, 6.0]
+HEIGHTS = [0.0, 500.0, 1500.0]
+# sizes: the benchmark headline's (bench.py:80-86)
+DEVICE = 'cuda'
+KERNEL_GRID = (51, 400, 400)     # phase 2 cubes (nz, ny, nx)
+N_RAYS = 1201 * 1001             # phase 2 rays, as many as the main path's pixels
+MODEL_GRID = (50, 400, 400)      # native levels, lat, lon of the weather model
+SPACING_M = 250.0                # output cube spacing: ~1.2M pixels over BBOX
+MIN_PIXELS = 1_000_000
+
+
+def say(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def cuda_ms(torch, fn, reps: int = 5) -> float:
+    """Median time of ``fn`` in ms by CUDA events, after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def max_rel(torch, a, b) -> float:
+    ok = torch.isfinite(b) & (b != 0)
+    return float(((a[ok] - b[ok]).abs() / b[ok].abs()).max()) if bool(ok.any()) else 0.0
+
+
+def check(cond: bool, what: str) -> None:
+    if not cond:
+        raise AssertionError(what)
+
+
+def phase_kernels(torch, kernels):
+    """Phase 2: both kernels against their twins at the main path's shapes."""
+    from raider_tpu_torch.delay.raytrace import (build_group_plan, integrate_bricks,
+                                                 integrate_bricks_ref, pack_cubes)
+    from raider_tpu_torch.ops.ztd import ztd_totals, ztd_totals_ref
+
+    rng = np.random.default_rng(SEED)
+    dev = DEVICE
+    nz, ny, nx = KERNEL_GRID
+    zs = (-100.0 + 27100.0 * np.linspace(0.0, 1.0, nz) ** 1.4)
+    k1, k2, k3 = 0.776, 0.233, 3.75e3
+    t = torch.as_tensor(rng.uniform(200.0, 310.0, (nz, ny, nx)).astype(np.float32), device=dev)
+    p = torch.as_tensor(rng.uniform(1e3, 1.05e5, (nz, ny, nx)).astype(np.float32), device=dev)
+    e = torch.as_tensor(rng.uniform(1.0, 4000.0, (nz, ny, nx)).astype(np.float32), device=dev)
+    zs_d = torch.as_tensor(zs, device=dev)
+    w_k, h_k = ztd_totals(t, p, e, zs_d, k1, k2, k3)
+    w_r, h_r = ztd_totals_ref(t, p, e, zs_d, k1, k2, k3)
+    torch.cuda.synchronize()
+    b1_rel = max(max_rel(torch, w_k, w_r), max_rel(torch, h_k, h_r))
+    b1_abs = float(max((w_k - w_r).abs().max(), (h_k - h_r).abs().max()))
+    b1_ms = cuda_ms(torch, lambda: ztd_totals(t, p, e, zs_d, k1, k2, k3))
+    b1_plain = cuda_ms(torch, lambda: ztd_totals_ref(t, p, e, zs_d, k1, k2, k3))
+    say(f'B1 ztd_totals {nz}x{ny}x{nx}: max-rel {b1_rel:.3e} max-abs {b1_abs:.3e} m; '
+        f'kernel {b1_ms:.3f} ms, twin {b1_plain:.3f} ms')
+    check(b1_rel <= B1_TOL, f'B1 max-rel {b1_rel} > {B1_TOL}')
+    del t, p, e, w_k, h_k, w_r, h_r
+
+    # B2: bench.py's synthetic slant rays (random start, azimuth, 25-45 deg
+    # zenith), contiguous through the level chain, on an origin-shifted grid
+    ys = np.linspace(30.0, 40.0, ny) - 30.0
+    xs = np.linspace(-125.0, -115.0, nx) + 125.0
+    wet = torch.as_tensor(rng.uniform(0.1, 100.0, (nz, ny, nx)).astype(np.float32), device=dev)
+    hyd = torch.as_tensor(rng.uniform(50.0, 300.0, (nz, ny, nx)).astype(np.float32), device=dev)
+    n_rays = N_RAYS
+    zen = torch.as_tensor(rng.uniform(np.deg2rad(25.0), np.deg2rad(45.0), n_rays), device=dev)
+    azi = torch.as_tensor(rng.uniform(0.0, 2.0 * np.pi, n_rays), device=dev)
+    y0 = torch.as_tensor(rng.uniform(2.0, 8.0, n_rays), device=dev)
+    x0 = torch.as_tensor(rng.uniform(2.0, 8.0, n_rays), device=dev)
+    dzv = np.diff(zs)
+    deg_per_m = 1.0 / 111000.0
+    dzv_d = torch.as_tensor(dzv, device=dev)
+    dh = dzv_d[:, None] * torch.tan(zen)[None, :]
+    zero = torch.zeros((1, n_rays), dtype=torch.float64, device=dev)
+    bnd_y = (y0 + torch.cat([zero, torch.cumsum(dh * torch.cos(azi) * deg_per_m, 0)])).float()
+    bnd_x = (x0 + torch.cat([zero, torch.cumsum(dh * torch.sin(azi) * deg_per_m, 0)])).float()
+    bnd_z = torch.as_tensor(zs, dtype=torch.float32, device=dev)[:, None].expand(nz, n_rays).contiguous()
+    ray_len = (dzv_d[:, None] / torch.cos(zen)[None, :]).float()
+    d2 = (dh * dh).float()
+    re = torch.full((n_rays,), 6371000.0, dtype=torch.float32, device=dev)
+    per_level_max = dzv * float((1.0 / torch.cos(zen)).max())
+    hstep_max = dzv * float(torch.tan(zen).max()) * deg_per_m * (1.0 + 1e-5) + 1e-7
+    del zen, azi, y0, x0, dh, zero
+    table, _ = pack_cubes(wet, hyd, grouped=True)
+    plan = build_group_plan(per_level_max, zs, hstep_max, ys, xs, zs)
+    rays = (bnd_y, bnd_x, bnd_z, d2, ray_len, re)
+    wk, hk = integrate_bricks(table, *rays, plan, ys, xs, zs)
+    wr, hr = integrate_bricks_ref(table, *rays, plan, ys, xs, zs)
+    torch.cuda.synchronize()
+    same_nan = bool(torch.equal(torch.isnan(wk), torch.isnan(wr))
+                    and torch.equal(torch.isnan(hk), torch.isnan(hr)))
+    b2_rel = max(max_rel(torch, wk, wr), max_rel(torch, hk, hr))
+    fin = torch.isfinite(wr) & torch.isfinite(hr)
+    b2_abs = float(max((wk - wr)[fin].abs().max(), (hk - hr)[fin].abs().max()))
+    b2_ms = cuda_ms(torch, lambda: integrate_bricks(table, *rays, plan, ys, xs, zs))
+    b2_plain = cuda_ms(torch, lambda: integrate_bricks_ref(table, *rays, plan, ys, xs, zs))
+    say(f'B2 brick_integrate {nz}x{ny}x{nx} table, {n_rays} rays, {plan.anchor.size} groups: '
+        f'max-rel {b2_rel:.3e} max-abs {b2_abs:.3e} m, NaN masks equal {same_nan}, '
+        f'finite {float(fin.float().mean()):.4f}; kernel {b2_ms:.3f} ms, twin {b2_plain:.3f} ms')
+    check(same_nan, 'B2 NaN masks differ from the twin')
+    check(b2_rel <= B2_TOL, f'B2 max-rel {b2_rel} > {B2_TOL}')
+    check(float(fin.float().mean()) > 0.99, 'B2 synthetic rays mostly NaN')
+    return {
+        'ztd_totals': dict(max_abs_err=b1_abs, ms=b1_ms, plain_ms=b1_plain),
+        'brick_integrate': dict(max_abs_err=b2_abs, ms=b2_ms, plain_ms=b2_plain),
+    }
+
+
+def smoke_model_class():
+    from raider_tpu_torch.wx.base import WeatherModel
+
+    class SmokeModel(WeatherModel):
+        """HRRR-sized synthetic model: standard atmosphere plus seeded noise
+        on 50 terrain-following native levels over a 400x400 grid."""
+
+        def __init__(self):
+            super().__init__()
+            self._k1, self._k2, self._k3 = 0.776, 0.233, 3.75e3
+            self._Name = 'SMOKE'
+            self._lat_res = self._lon_res = 0.02
+
+        def load_weather(self, *args, **kwargs):
+            rng = np.random.default_rng(SEED + 1)
+            nlev, ny, nx = MODEL_GRID
+            self._ys = np.linspace(16.0, 24.0, ny)
+            self._xs = np.linspace(1.5, 7.5, nx)
+            self._lons, self._lats = np.meshgrid(self._xs, self._ys)
+            terrain = (800.0 + 600.0 * np.sin(np.deg2rad(self._lats) * 40.0)
+                       * np.cos(np.deg2rad(self._lons) * 30.0)
+                       + rng.normal(0.0, 50.0, (ny, nx))).clip(0.0, None)
+            sigma = np.linspace(0.0, 1.0, nlev) ** 1.5
+            h = terrain[..., None] + (27000.0 - terrain[..., None]) * sigma
+            t = np.where(h < 11000.0, 288.15 - 0.0065 * h, 216.65 + 0.001 * np.maximum(h - 20000.0, 0.0))
+            p = np.where(h < 11000.0, 101325.0 * (1.0 - 2.25577e-5 * h) ** 5.25588,
+                         22632.0 * np.exp(-(h - 11000.0) / 6341.6))
+            q = 0.015 * np.exp(-h / 2000.0)
+            self._zs = h
+            self._t = t + rng.normal(0.0, 0.5, h.shape)
+            self._p = p * (1.0 + rng.normal(0.0, 1e-3, h.shape))
+            self._q = q * rng.uniform(0.7, 1.1, h.shape)
+
+    return SmokeModel
+
+
+def polar_orbit():
+    """bench.py's 700 km polar orbit (ground track on longitude 0)."""
+    from raider_tpu_torch.geometry.orbit import Orbit
+
+    tt = np.arange(-600.0, 601.0, 30.0)
+    inc = np.deg2rad(90.0)
+    r_orb = 6378137.0 + 700e3
+    ang = 2.0 * np.pi / 5800.0 * tt
+    pos = np.stack([r_orb * np.cos(ang), r_orb * np.sin(ang) * np.cos(inc),
+                    r_orb * np.sin(ang) * np.sin(inc)], -1)
+    return Orbit(times=tt, pos=pos, vel=np.gradient(pos, 30.0, axis=0),
+                 ref_time=dt.datetime(2020, 1, 1, 12, 0, 0))
+
+
+def phase_main_path(torch, kernels):
+    """Phase 3: the main path through the user entry points."""
+    from raider_tpu_torch.delay import engine
+    from raider_tpu_torch.delay.raytrace import integrate_bricks_ref, pack_cubes, slice_plan
+    from raider_tpu_torch.geodesy import get_Re
+    from raider_tpu_torch.geometry import BoundingBox, Raytracing, Zenith
+    from raider_tpu_torch.ops.interp import interp3d_points
+
+    when = dt.datetime(2020, 1, 1, 12, 0, 0)
+    model = smoke_model_class()()
+    model.setTime(when)
+    orbit = polar_orbit()
+    stages = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+
+    t0 = time.perf_counter()
+    model.load(device=DEVICE)
+    ds_wm = model.to_dataset()
+    torch.cuda.synchronize()
+    stages['weather_model_s'] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    aoi_z = BoundingBox(BBOX, cube_spacing_in_m=SPACING_M)
+    ds_z, _ = engine.tropo_delay(when, ds_wm, aoi_z, Zenith(), height_levels=HEIGHTS,
+                                 device=DEVICE)
+    torch.cuda.synchronize()
+    stages['zenith_s'] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    aoi_r = BoundingBox(BBOX, cube_spacing_in_m=SPACING_M)
+    los = Raytracing(orbit=orbit, time=when)
+    ds_r, _ = engine.tropo_delay(when, ds_wm, aoi_r, los, height_levels=HEIGHTS, device=DEVICE)
+    torch.cuda.synchronize()
+    stages['raytrace_s'] = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    nzc = tuple(np.shape(ds_wm['wet'].data))
+    say('main path stages (s): ' + ', '.join(f'{k} {v:.3f}' for k, v in stages.items())
+        + f'; weather cube {nzc}; peak device memory {peak_gb:.2f} GB; launches {launches}')
+    for name, ds in (('zenith', ds_z), ('raytraced', ds_r)):
+        w = np.asarray(ds['wet'].data)
+        h = np.asarray(ds['hydro'].data)
+        fin = float(np.mean(np.isfinite(w) & np.isfinite(h)))
+        say(f'{name} cube {w.shape} ({w.shape[1] * w.shape[2]} pixels x {w.shape[0]} heights): '
+            f'finite share {fin:.6f}, mean wet {np.nanmean(w):.6f} m, '
+            f'mean hydro {np.nanmean(h):.6f} m')
+        check(w.shape[0] == 3 and w.shape[1] * w.shape[2] >= MIN_PIXELS, f'{name} cube too small')
+        check(fin >= 0.99, f'{name} finite share {fin} < 0.99')
+    zh = np.nanmean(np.asarray(ds_z['hydro'].data)[0])
+    check(1.5 < zh < 3.0, f'zenith hydrostatic delay {zh} m outside 1.5-3 m')
+    slant = np.nanmean(np.asarray(ds_r['hydro'].data)[0]) / zh
+    check(1.0 < slant < 2.0, f'slant/zenith hydrostatic ratio {slant} outside 1-2')
+    check(launches['ztd_totals'] >= 1 and launches['brick_integrate'] >= 1,
+          f'a kernel was not launched on the main path: {launches}')
+
+    # zenith cube (separable fp32 contractions) vs a float64 8-corner gather
+    # on 4096 pixels: f32 rounding of ~2.5 m totals stays well under 1e-6 m
+    rng = np.random.default_rng(SEED + 2)
+    wm = engine.WeatherCube(ds_wm, DEVICE)
+    iy = rng.integers(0, aoi_z.ypts.size, 4096)
+    ix = rng.integers(0, aoi_z.xpts.size, 4096)
+    py = torch.as_tensor(aoi_z.ypts[iy], dtype=torch.float64, device=DEVICE)
+    px = torch.as_tensor(aoi_z.xpts[ix], dtype=torch.float64, device=DEVICE)
+    zen_err = 0.0
+    for field, out in (('wet_total', 'wet'), ('hydro_total', 'hydro')):
+        cube = wm.field(field, torch.float64)
+        for k, hgt in enumerate(HEIGHTS):
+            g = interp3d_points(cube, wm.ys, wm.xs, wm.zs, py, px, torch.full_like(py, hgt))
+            zen_err = max(zen_err, float(np.max(np.abs(
+                g.cpu().numpy() - np.asarray(ds_z[out].data)[k, iy, ix]))))
+    say(f'zenith: separable fp32 contractions vs float64 gather on 4096 pixels: '
+        f'max |diff| {zen_err:.3e} m')
+    check(zen_err <= 1e-6, f'zenith separable vs gather {zen_err} m > 1e-6 m')
+
+    # raytraced 0 m slice vs a plain-torch recomputation on a 64x64 sub-grid
+    xx, yy = np.meshgrid(aoi_r.xpts, aoi_r.ypts)
+    lat = torch.as_tensor(yy.ravel(), dtype=torch.float64, device=DEVICE)
+    lon = torch.as_tensor(xx.ravel(), dtype=torch.float64, device=DEVICE)
+    zref = float(wm.zs.max() - 1)
+    geom = engine._slice_geometry(wm, lat, lon, HEIGHTS[0], los, zref)
+    rows = np.linspace(0, aoi_r.ypts.size - 1, 64).round().astype(int)
+    cols = np.linspace(0, aoi_r.xpts.size - 1, 64).round().astype(int)
+    flat = torch.as_tensor((rows[:, None] * aoi_r.xpts.size + cols[None, :]).ravel(), device=DEVICE)
+    sub = [geom[k][:, flat].float().contiguous()
+           for k in ('bnd_y', 'bnd_x', 'bnd_z', 'd2', 'ray_len')]
+    re_sub = get_Re(lat[flat]).float()
+    cw, ch = wm.field('wet', torch.float32), wm.field('hydro', torch.float32)
+    table, _ = pack_cubes(cw, ch, grouped=True)
+    ys_k, xs_k = wm.ys - wm.ys[0], wm.xs - wm.xs[0]
+    plan = slice_plan(cw.shape, np.float32, ys_k, xs_k, wm.zs, geom['per_level_max'],
+                      geom['heights'], geom['hstep_max'])
+    w_ref, h_ref = integrate_bricks_ref(table, *sub, re_sub, plan, ys_k, xs_k, wm.zs)
+    w_main = np.asarray(ds_r['wet'].data)[0][rows[:, None], cols[None, :]].ravel()
+    h_main = np.asarray(ds_r['hydro'].data)[0][rows[:, None], cols[None, :]].ravel()
+    sub_err = float(max(np.max(np.abs(w_ref.cpu().numpy() - w_main)),
+                        np.max(np.abs(h_ref.cpu().numpy() - h_main))))
+    say(f'raytraced 0 m slice vs plain-torch recomputation on a 64x64 sub-grid: '
+        f'max |diff| {sub_err:.3e} m')
+    check(sub_err <= SUBGRID_TOL, f'sub-grid twin check {sub_err} m > {SUBGRID_TOL} m')
+    return launches
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print('chip_smoke: torch.cuda.is_available() is false; this run needs a CUDA GPU',
+              file=sys.stderr)
+        return 1
+    try:
+        from raider_tpu_torch import kernels
+    except ImportError as exc:
+        print(f'chip_smoke: cannot import raider_tpu_torch ({exc}); run from the repo root',
+              file=sys.stderr)
+        return 2
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision('highest')
+    smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
+                         capture_output=True, text=True, check=True, timeout=60)
+    say(smi.stdout.strip().splitlines()[0])
+    say(f'device: {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; '
+        f'torch {torch.__version__}, CUDA {torch.version.cuda}; '
+        f'matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}, '
+        f'cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}')
+
+    t0 = time.perf_counter()
+    so = kernels.build()
+    kernels.lib()
+    say(f'build: {so.name} in {time.perf_counter() - t0:.2f} s (nvcc '
+        f'{"ran" if kernels.build_seconds is not None else "skipped: cached"})')
+
+    measured = phase_kernels(torch, kernels)
+    launches = phase_main_path(torch, kernels)
+
+    record = {'kernels': [
+        {'name': 'ztd_totals', 'route': 'cuda', 'source': 'raider_tpu_torch/csrc/ztd_totals.cu',
+         'replaces': 'raider_tpu/ops/pallas_ztd.py:31', 'launches': launches['ztd_totals'],
+         **measured['ztd_totals']},
+        {'name': 'brick_integrate', 'route': 'cuda',
+         'source': 'raider_tpu_torch/csrc/brick_integrate.cu',
+         'replaces': 'raider_tpu/delay/raytrace.py:704', 'launches': launches['brick_integrate'],
+         **measured['brick_integrate']},
+    ]}
+    say(json.dumps(record))
+    say(json.dumps({'ok': True, 'device': {'platform': 'gpu',
+                                           'kind': torch.cuda.get_device_name(0),
+                                           'count': torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == '__main__':
+    sys.exit(main())

@@ -1,0 +1,287 @@
+"""Top-level tropospheric delay calculation on one device.
+
+Counterpart of ``raider_tpu/delay/engine.py`` for cube-type AOIs with
+zenith or raytraced lines of sight:
+
+  * Zenith cube: the integrated-delay fields interpolated onto the output
+    grid, every height level at once (three fp32 contractions when the
+    output CRS is the model's).
+  * Raytraced cube, per output height (the JAX package's host-geometry
+    branch, run on the device in float64): pixel ECEF positions, batched
+    geo2rdr look vectors, batched level intersections, boundary points in
+    the model CRS shifted by the grid origin before the float32 entry, and
+    a per-slice sampling plan from that slice's measured per-level maxima;
+    then kernel B2 (``delay.raytrace.integrate_rays``).
+
+The JAX package's device-geometry session (cube-global static plan and
+deferred redo), its int16 result stream, fetch batching and sharding are
+not ported (ROADMAP A5/A6 say why and what would bring them back).
+"""
+
+import datetime as dt
+import os
+from typing import Optional, Union
+
+import numpy as np
+import torch
+
+from raider_tpu_torch.constants import MAX_SEGMENT_LENGTH
+from raider_tpu_torch.delay.raytrace import integrate_rays, pack_cubes
+from raider_tpu_torch.geodesy import (Geocentric, Geographic, crs_from_cf, crs_from_user, get_Re,
+                                      transform_points)
+from raider_tpu_torch.geodesy.ellipsoid import lla2ecef
+from raider_tpu_torch.geometry.aoi import AOI, BoundingBox
+from raider_tpu_torch.geometry.los import LOS
+from raider_tpu_torch.geometry.rays import build_ray, level_heights
+from raider_tpu_torch.io import Dataset, Variable, read_nc
+from raider_tpu_torch.logger import logger
+from raider_tpu_torch.ops import grid_weights, interp3d_points, interp3d_separable
+
+
+def torch_dtype(dtype) -> torch.dtype:
+    """A torch dtype from a torch or numpy dtype."""
+    return dtype if isinstance(dtype, torch.dtype) else getattr(torch, np.dtype(dtype).name)
+
+
+class WeatherCube:
+    """A processed weather model (a Dataset, or the path of its file) whose
+    fields are served as tensors on ``device``; axes stay host numpy."""
+
+    def __init__(self, path_or_ds: Union[str, Dataset], device) -> None:
+        ds = path_or_ds if isinstance(path_or_ds, Dataset) else read_nc(path_or_ds)
+        self.ds = ds
+        self.device = torch.device(device)
+        self.xs, self.ys, self.zs = (np.asarray(ds.coords[k].data, dtype=np.float64).copy()
+                                     for k in ('x', 'y', 'z'))
+        # normalize all axes to ascending (the interpolators require it)
+        self._flip = [a.size > 1 and a[0] > a[-1] for a in (self.zs, self.ys, self.xs)]
+        self.zs, self.ys, self.xs = (a[::-1].copy() if f else a
+                                     for a, f in zip((self.zs, self.ys, self.xs), self._flip))
+        try:
+            self.crs = crs_from_cf(ds['proj'].attrs)
+        except (KeyError, ValueError):
+            logger.warning("WARNING: I can't find a CRS in the weather model file, "
+                           'so I will assume you are using WGS84')
+            self.crs = Geographic()
+
+    def field(self, name: str, dtype=torch.float64) -> torch.Tensor:
+        """(z, y, x) field as a contiguous tensor on the cube's device."""
+        arr = torch.as_tensor(self.ds[name].data, dtype=torch_dtype(dtype), device=self.device)
+        dims = tuple(d for d, f in enumerate(self._flip) if f)
+        if dims:
+            arr = torch.flip(arr, dims)
+        return arr.contiguous()
+
+
+def tropo_delay(
+    datetime: dt.datetime,
+    weather_model_file,
+    aoi: AOI,
+    los: LOS,
+    height_levels: Optional[list] = None,
+    out_proj: Union[int, str] = 4326,
+    zref: Optional[float] = None,
+    compute_dtype=None,
+    *,
+    device,
+):
+    """Delays on a cube-type AOI: returns (Dataset, None).
+
+    ``weather_model_file`` is a processed-weather Dataset or a file path;
+    all computation runs on ``device``. ``compute_dtype`` (of the delay
+    kernels) defaults to float32 on CUDA and float64 on the CPU, like the
+    JAX package's accelerator/CPU default.
+    """
+    device = torch.device(device)
+    if compute_dtype is None:
+        compute_dtype = torch.float32 if device.type == 'cuda' else torch.float64
+    compute_dtype = torch_dtype(compute_dtype)
+    if not isinstance(aoi, BoundingBox):
+        raise NotImplementedError('raider_tpu_torch computes delay cubes on a BoundingBox; '
+                                  'point-type AOIs are not ported yet (ROADMAP A)')
+    if los.is_Projected():
+        raise NotImplementedError('projected LOS is not ported to raider_tpu_torch yet (ROADMAP A)')
+    crs = crs_from_user(out_proj)
+    wm = WeatherCube(weather_model_file, device)
+
+    toa = wm.zs.max() - 1
+    if height_levels is None:
+        height_levels = wm.zs
+    if zref is None:
+        zref = toa
+    if zref > toa:
+        zref = toa
+        logger.warning('Requested integration height (zref) is higher than top of weather '
+                       f'model. Forcing to top ({toa}).')
+    ds = _get_delays_on_cube(datetime, wm, weather_model_file, aoi, height_levels, los, crs,
+                             zref, compute_dtype=compute_dtype)
+    return ds, None
+
+
+def _get_delays_on_cube(datetime, wm: WeatherCube, weather_model_file, aoi, heights, los,
+                        crs, zref, compute_dtype=torch.float64):
+    """Build the delay cube and its Dataset."""
+    zpts = np.array(heights, dtype=np.float64)
+    if not hasattr(aoi, 'xpts'):
+        res = float(min(np.diff(wm.xs).mean(), np.diff(wm.ys).mean()))
+        aoi.set_output_spacing(ll_res=res)
+        aoi.set_output_xygrid(crs)
+
+    if los.is_Zenith():
+        out_type = 'zenith'
+        wet, hydro = _build_cube(wm, aoi.xpts, aoi.ypts, zpts, crs,
+                                 ('wet_total', 'hydro_total'), compute_dtype)
+    else:
+        out_type = 'slant - raytracing'
+        wet, hydro = _build_cube_ray(wm, aoi.xpts, aoi.ypts, zpts, los, crs, zref=zref,
+                                     compute_dtype=compute_dtype)
+    if np.isnan(wet).any() or np.isnan(hydro).any():
+        logger.critical('There are missing delay values. Check your inputs.')
+    return writeResultsToDataset(datetime, aoi.xpts, aoi.ypts, zpts, crs, wet, hydro,
+                                 weather_model_file, out_type)
+
+
+def _build_cube(wm: WeatherCube, xpts, ypts, zpts, pts_crs, fields, compute_dtype):
+    """Zenith cube: the integrated-delay fields on the output grid, all
+    height levels at once; returns host numpy (z, y, x) arrays."""
+    cubes = [wm.field(f, compute_dtype) for f in fields]
+    # the separable path touches every cube entry per contraction line, so a
+    # single NaN would poison whole rows: it needs NaN-free cubes
+    if wm.crs == pts_crs and not any(bool(torch.isnan(c).any()) for c in cubes):
+        w_y = grid_weights(wm.ys, ypts)
+        w_x = grid_weights(wm.xs, xpts)
+        w_z = grid_weights(wm.zs, zpts)
+        return [interp3d_separable(c, w_z, w_y, w_x).cpu().numpy() for c in cubes]
+
+    dev = wm.device
+    xx, yy = np.meshgrid(xpts, ypts)
+    lon, lat = pts_crs.inverse(torch.as_tensor(xx, device=dev), torch.as_tensor(yy, device=dev))
+    mx, my = wm.crs.forward(lon, lat)
+    shape = (zpts.size,) + tuple(my.shape)
+    pts_y = my.to(compute_dtype).expand(shape)
+    pts_x = mx.to(compute_dtype).expand(shape)
+    pts_z = torch.as_tensor(zpts, dtype=compute_dtype, device=dev)[:, None, None].expand(shape)
+    return [interp3d_points(c, wm.ys, wm.xs, wm.zs, pts_y, pts_x, pts_z).cpu().numpy()
+            for c in cubes]
+
+
+def _nanmax_rows(a: torch.Tensor) -> np.ndarray:
+    """Row-wise nanmax of a (L, N) tensor as host float64 (NaN for all-NaN rows)."""
+    m = torch.nan_to_num(a, nan=-float('inf')).amax(dim=1)
+    m = torch.where(torch.isnan(a).all(dim=1), torch.full_like(m, float('nan')), m)
+    return m.cpu().numpy().astype(np.float64)
+
+
+def _slice_geometry(wm: WeatherCube, lat, lon, ht: float, los, zref: float):
+    """Ray geometry of one output height, float64 on the device.
+
+    lat/lon: (N,) float64 pixel tensors. Returns None when no model level
+    contributes, else a dict with the (L+1, N) boundary points ``bnd_y``,
+    ``bnd_x``, ``bnd_z`` in the model CRS (y and x shifted by the grid
+    origin: float32 then quantizes at the grid extent's ulp, not the
+    absolute coordinate's), ``d2`` (squared horizontal chord) and
+    ``ray_len`` (L, N), the level chain ``heights``, and the host plan
+    inputs ``per_level_max`` and ``hstep_max`` (L,).
+    """
+    hts = torch.full_like(lat, float(ht))
+    xyz = torch.stack(lla2ecef(lat, lon, hts), dim=-1)
+    look = los.getLookVectors(ht, [lon, lat, hts], xyz)
+    ray_lengths, low_xyzs, high_xyzs = build_ray(wm.zs, float(ht), xyz, look, zref)
+    if ray_lengths is None:
+        return None
+    if bool(torch.isnan(ray_lengths).all()):
+        raise ValueError('geo2rdr did not converge. Check orbit coverage')
+
+    # contiguous segments: only the L+1 unique boundary points are transformed
+    bounds_xyz = torch.cat([low_xyzs, high_xyzs[-1:]], dim=0)
+    gx, gy, gz = transform_points(Geocentric(), wm.crs, bounds_xyz[..., 0],
+                                  bounds_xyz[..., 1], bounds_xyz[..., 2])
+    bnd_y = gy - float(wm.ys[0])
+    bnd_x = gx - float(wm.xs[0])
+    chord2 = torch.sum((high_xyzs - low_xyzs) ** 2, dim=-1)
+    dz = gz[1:] - gz[:-1]
+    d2 = torch.clamp_min(chord2 - dz ** 2, 0.0)
+    # per-level max horizontal motion (model units), inflated by the f32
+    # coordinate quantization so the brick grouping bound stays conservative
+    hstep = torch.hypot(bnd_y[1:] - bnd_y[:-1], bnd_x[1:] - bnd_x[:-1])
+    return dict(bnd_y=bnd_y, bnd_x=bnd_x, bnd_z=gz, d2=d2, ray_len=ray_lengths,
+                heights=level_heights(wm.zs, float(ht), zref),
+                per_level_max=_nanmax_rows(ray_lengths),
+                hstep_max=_nanmax_rows(hstep) * (1.0 + 1e-5) + 1e-7)
+
+
+def _build_cube_ray(wm: WeatherCube, xpts, ypts, zpts, los, pts_crs, zref,
+                    compute_dtype=torch.float64,
+                    max_segment_length: float = MAX_SEGMENT_LENGTH):
+    """Raytraced cube: float64 geometry and the brick integrate per output
+    height, on the weather cube's device. Returns host float64 (z, y, x)
+    arrays (wet, hydro)."""
+    compute_dtype = torch_dtype(compute_dtype)
+    dev = wm.device
+    cube_wet = wm.field('wet', compute_dtype)
+    cube_hydro = wm.field('hydro', compute_dtype)
+    # the kernel's axes carry the same origin shift as the boundary points
+    ys_k = wm.ys - wm.ys[0]
+    xs_k = wm.xs - wm.xs[0]
+    packed2d, pack_mode = pack_cubes(cube_wet, cube_hydro, grouped=True)
+
+    xx, yy = np.meshgrid(xpts, ypts)
+    lon, lat = pts_crs.inverse(torch.as_tensor(xx.ravel(), dtype=torch.float64, device=dev),
+                               torch.as_tensor(yy.ravel(), dtype=torch.float64, device=dev))
+    re_local = get_Re(lat).to(compute_dtype)
+    out = torch.zeros((2, zpts.size, yy.size), dtype=torch.float64, device=dev)
+    for hh, ht in enumerate(zpts):
+        logger.info(f'Processing slice {hh + 1} / {len(zpts)}: {ht}')
+        geom = _slice_geometry(wm, lat, lon, float(ht), los, zref)
+        if geom is None:
+            # no model level contributes at this height: the delay stays 0
+            continue
+        rays = [geom[k].to(compute_dtype) for k in ('bnd_y', 'bnd_x', 'bnd_z', 'd2', 'ray_len')]
+        w, h = integrate_rays(cube_wet, cube_hydro, ys_k, xs_k, wm.zs, *rays, re_local,
+                              geom['per_level_max'], max_segment_length,
+                              packed2d=packed2d, mode=pack_mode,
+                              heights=geom['heights'], hstep_max=geom['hstep_max'])
+        out[0, hh] = w
+        out[1, hh] = h
+    out = out.reshape(2, zpts.size, ypts.size, xpts.size).cpu().numpy()
+    return out[0], out[1]
+
+
+def writeResultsToDataset(datetime, xpts, ypts, zpts, crs, wetDelay, hydroDelay,
+                          weather_model_file, out_type) -> Dataset:
+    """CF-1.7 delay cube (the JAX package's writer schema)."""
+    source = weather_model_file if isinstance(weather_model_file, (str, os.PathLike)) else 'in-memory'
+    attrs = {
+        'Conventions': 'CF-1.7',
+        'title': 'RAiDER geo cube',
+        'source': os.path.basename(str(source)),
+        'history': str(dt.datetime.now(tz=dt.timezone.utc)) + ' raider-tpu-torch',
+        'description': f'RAiDER geo cube - {out_type}',
+        'reference_time': datetime.strftime('%Y%m%dT%H:%M:%S'),
+    }
+    coords = {
+        'x': Variable(('x',), np.asarray(xpts), {}),
+        'y': Variable(('y',), np.asarray(ypts), {}),
+        'z': Variable(('z',), np.asarray(zpts),
+                      {'axis': 'Z', 'units': 'm', 'description': 'height above ellipsoid'}),
+    }
+    if crs.is_geographic:
+        coords['y'].attrs.update(units='degrees_north', standard_name='latitude',
+                                 long_name='latitude')
+        coords['x'].attrs.update(units='degrees_east', standard_name='longitude',
+                                 long_name='longitude')
+    else:
+        coords['y'].attrs.update(axis='Y', standard_name='projection_y_coordinate',
+                                 long_name='y-coordinate in projected coordinate system', units='m')
+        coords['x'].attrs.update(axis='X', standard_name='projection_x_coordinate',
+                                 long_name='x-coordinate in projected coordinate system', units='m')
+    variables = {
+        'wet': Variable(('z', 'y', 'x'), np.asarray(wetDelay),
+                        {'units': 'm', 'description': f'wet {out_type} delay',
+                         'grid_mapping': 'crs'}),
+        'hydro': Variable(('z', 'y', 'x'), np.asarray(hydroDelay),
+                          {'units': 'm', 'description': f'hydrostatic {out_type} delay',
+                           'grid_mapping': 'crs'}),
+        'crs': Variable((), np.int64(-2147483647), dict(crs.to_cf())),
+    }
+    return Dataset(coords=coords, variables=variables, attrs=attrs)

@@ -1,0 +1,191 @@
+"""The CUDA kernels of raider_tpu_torch against their plain-torch twins.
+
+Tests marked ``cuda`` need an NVIDIA GPU and skip elsewhere. This file
+imports neither jax nor raider_tpu, so it also runs on a machine with the
+card and without jax:
+
+    python -m pytest tests/test_torch_kernels.py --noconftest -p no:cacheprovider -q
+
+Both kernels use round-to-nearest arithmetic in their twins' order of
+operations, so on a NaN-free table they must agree with the twins exactly;
+the stated tolerances (B1 2e-6, B2 1e-5 relative) are the contract the
+smoke run holds them to.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from raider_tpu_torch import kernels
+from raider_tpu_torch.delay.raytrace import (build_group_plan, integrate_bricks,
+                                             integrate_bricks_ref, pack_cubes)
+from raider_tpu_torch.ops.ztd import ztd_totals, ztd_totals_ref
+
+K1, K2, K3 = 0.776, 0.233, 3.75e3
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip('needs an NVIDIA GPU with CUDA (the kernels have no CPU build)')
+    return torch.device('cuda')
+
+
+def _ztd_inputs(shape, device='cpu', seed=3):
+    rng = np.random.default_rng(seed)
+    arrs = (rng.uniform(220, 300, shape), rng.uniform(1e3, 1e5, shape),
+            rng.uniform(1, 1000, shape))
+    zs = np.sort(rng.uniform(-500, 25000, shape[0]))
+    return [torch.as_tensor(a.astype(np.float32), device=device) for a in arrs] + [
+        torch.as_tensor(zs, device=device)]
+
+
+def contiguous_rays(zs, n_rays, rng, ys, xs, zenith_deg=(20, 40), device='cpu'):
+    """Contiguous slant segments through the level chain ``zs``, starting in
+    the middle fifth of the grid so that they stay inside it."""
+    L = zs.size - 1
+    zen = np.deg2rad(rng.uniform(*zenith_deg, n_rays))
+    azi = rng.uniform(0, 2 * np.pi, n_rays)
+    dh = np.diff(zs)[:, None] * np.tan(zen)[None, :]
+    deg_per_m = 1.0 / 111000.0
+    y0 = rng.uniform(*np.quantile(ys, [0.4, 0.6]), n_rays)
+    x0 = rng.uniform(*np.quantile(xs, [0.4, 0.6]), n_rays)
+    bnd_y = y0 + np.vstack([np.zeros((1, n_rays)), np.cumsum(dh * np.cos(azi) * deg_per_m, 0)])
+    bnd_x = x0 + np.vstack([np.zeros((1, n_rays)), np.cumsum(dh * np.sin(azi) * deg_per_m, 0)])
+    bnd_z = np.broadcast_to(zs[:, None], (L + 1, n_rays))
+    ray_len = np.diff(zs)[:, None] / np.cos(zen)[None, :]
+    d2 = dh ** 2
+    re = np.full(n_rays, 6371000.0)
+    hstep = np.nanmax(np.hypot(np.diff(bnd_y, axis=0), np.diff(bnd_x, axis=0)), axis=1)
+    rays = [torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float32, device=device)
+            for a in (bnd_y, bnd_x, bnd_z, d2, ray_len, re)]
+    return rays, np.nanmax(ray_len, axis=1), hstep * (1 + 1e-5) + 1e-7
+
+
+def _brick_case(device, uniform=True, seed=0, n_rays=3000, mutate=None):
+    rng = np.random.default_rng(seed)
+    zs = -500.0 + 27000.0 * np.linspace(0.0, 1.0, 18) ** 1.6
+    ys = np.linspace(33.0, 34.0, 11)
+    xs = np.linspace(-118.0, -117.0, 12)
+    if not uniform:
+        ys = np.sort(np.concatenate([[33.0, 34.0], rng.uniform(33.05, 33.95, 9)]))
+    wet = torch.as_tensor(rng.uniform(0.5, 2.0, (zs.size, ys.size, xs.size)),
+                          dtype=torch.float32, device=device)
+    hyd = torch.as_tensor(rng.uniform(1.0, 4.0, (zs.size, ys.size, xs.size)),
+                          dtype=torch.float32, device=device)
+    rays, plm, hstep = contiguous_rays(zs, n_rays, rng, ys, xs, device=device)
+    if mutate is not None:
+        mutate(rays)
+    table, _ = pack_cubes(wet, hyd, grouped=True)
+    plan = build_group_plan(plm, zs, hstep, ys, xs, zs)
+    return table, rays, plan, ys, xs, zs
+
+
+def _mutate_fast_rays(rays):
+    # a tenth of the rays move 3x faster than the motion bound the plan is
+    # built with: their upper groups overflow the brick window
+    bnd_y, bnd_x = rays[0], rays[1]
+    k = bnd_y.shape[1] // 10
+    for b in (bnd_y, bnd_x):
+        b[:, :k] = b[0, :k] + 3.0 * (b[:, :k] - b[0, :k])
+
+
+def _mutate_bad_rays(rays):
+    bnd_y, bnd_x, _, _, ray_len, _ = rays
+    bnd_y[:, 7] = float('nan')
+    bnd_x[:, 11] += 30.0
+    ray_len[:, 13] = float('nan')
+
+
+def test_library_name_tracks_the_sources():
+    p = kernels.library_path()
+    assert p == kernels.library_path()
+    assert p.parent == kernels.BUILD_DIR and p.name.startswith('libraider_kernels_')
+    assert {s.name for s in kernels._sources()} >= {'ztd_totals.cu', 'brick_integrate.cu'}
+
+
+def test_reset_launch_counts():
+    kernels.LAUNCHES['ztd_totals'] += 3
+    kernels.reset_launch_counts()
+    assert kernels.LAUNCHES == {'ztd_totals': 0, 'brick_integrate': 0}
+
+
+@pytest.mark.parametrize('case', ['plain', 'bad_rays', 'window'])
+def test_cpu_wrapper_runs_the_twin(case):
+    kw = dict(plain={}, bad_rays=dict(mutate=_mutate_bad_rays),
+              window=dict(mutate=_mutate_fast_rays))[case]
+    table, rays, plan, ys, xs, zs = _brick_case('cpu', n_rays=400, **kw)
+    before = dict(kernels.LAUNCHES)
+    w, h = integrate_bricks(table, *rays, plan, ys, xs, zs)
+    rw, rh = integrate_bricks_ref(table, *rays, plan, ys, xs, zs)
+    torch.testing.assert_close(w, rw, rtol=0, atol=0, equal_nan=True)
+    torch.testing.assert_close(h, rh, rtol=0, atol=0, equal_nan=True)
+    assert kernels.LAUNCHES == before
+    if case == 'plain':
+        assert torch.isfinite(w).all()
+    else:
+        assert torch.isnan(w).any() and not torch.isnan(w).all()
+
+
+@pytest.mark.parametrize('bad', ['table_width', 'ray_dtype', 're_len'])
+def test_brick_wrapper_rejects_bad_inputs(bad):
+    table, rays, plan, ys, xs, zs = _brick_case('cpu', n_rays=50)
+    rays = list(rays)
+    if bad == 'table_width':
+        table = table[:, :-2]
+    elif bad == 'ray_dtype':
+        rays[0] = rays[0].double()
+    else:
+        rays[5] = rays[5][:-1]
+    with pytest.raises(ValueError):
+        integrate_bricks(table, *rays, plan, ys, xs, zs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('shape', [(51, 40, 130), (8, 8, 128), (5, 3, 7), (2, 1, 1)])
+def test_ztd_kernel_matches_twin(cuda, shape):
+    t, p, e, zs = _ztd_inputs(shape, device=cuda)
+    before = kernels.LAUNCHES['ztd_totals']
+    w, h = ztd_totals(t, p, e, zs, K1, K2, K3)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES['ztd_totals'] == before + 1
+    rw, rh = ztd_totals_ref(t, p, e, zs, K1, K2, K3)
+    for a, b in ((w, rw), (h, rh)):
+        nz = b != 0
+        assert torch.equal(a[~nz], b[~nz])
+        assert float(((a[nz] - b[nz]).abs() / b[nz].abs()).max()) <= 2e-6
+
+
+@pytest.mark.cuda
+def test_ztd_kernel_rejects_non_contiguous(cuda):
+    t, p, e, zs = _ztd_inputs((4, 6, 8), device=cuda)
+    with pytest.raises(ValueError):
+        ztd_totals(t.transpose(1, 2), p.transpose(1, 2), e.transpose(1, 2), zs, K1, K2, K3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', ['uniform', 'non_uniform', 'bad_rays', 'window'])
+def test_brick_kernel_matches_twin(cuda, case):
+    kw = dict(uniform={}, non_uniform=dict(uniform=False),
+              bad_rays=dict(mutate=_mutate_bad_rays), window=dict(mutate=_mutate_fast_rays))[case]
+    table, rays, plan, ys, xs, zs = _brick_case(cuda, **kw)
+    before = kernels.LAUNCHES['brick_integrate']
+    w, h = integrate_bricks(table, *rays, plan, ys, xs, zs)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES['brick_integrate'] == before + 1
+    rw, rh = integrate_bricks_ref(table, *rays, plan, ys, xs, zs)
+    for a, b in ((w, rw), (h, rh)):
+        assert torch.equal(torch.isnan(a), torch.isnan(b))
+        ok = ~torch.isnan(b)
+        assert float(((a[ok] - b[ok]).abs() / b[ok].abs()).max()) <= 1e-5
+    if case in ('bad_rays', 'window'):
+        assert torch.isnan(w).any() and not torch.isnan(w).all()
+    else:
+        assert torch.isfinite(w).all()
+
+
+@pytest.mark.cuda
+def test_brick_kernel_rejects_float64(cuda):
+    table, rays, plan, ys, xs, zs = _brick_case(cuda, n_rays=64)
+    with pytest.raises(ValueError):
+        integrate_bricks(table.double(), *[r.double() for r in rays], plan, ys, xs, zs)

@@ -1,0 +1,135 @@
+"""The port's delay path end to end vs the JAX package (CPU).
+
+``tropo_delay`` on the LA synthetic weather dataset of tests/test_raytrace.py
+(smooth refractivity and integrated-delay cubes), ~170 pixels at 2 heights,
+with the compute dtype pinned on both sides. Raytracing uses the synthetic
+polar orbit of tests/test_orbit.py; the JAX package takes its host-f64
+geometry path on the CPU, which is the algorithm the port runs.
+
+Tolerances: float64 <= 1e-9 m (the same f64 geometry and quadrature; only
+rounding order differs); float32 <= 1e-5 m (float32 coordinates and
+refractivities, sums of ~100 samples).
+"""
+
+import datetime as dt
+import os
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+
+from raider_tpu.delay import engine as j_engine
+from raider_tpu.geometry.aoi import BoundingBox as JBox
+from raider_tpu.geometry.los import Raytracing as JRay
+from raider_tpu.geometry.los import Zenith as JZen
+from raider_tpu_torch.convert import dataset_from_reference, orbit_from_reference
+from raider_tpu_torch.delay import engine as t_engine
+from raider_tpu_torch.geometry import BoundingBox, Raytracing, Zenith
+
+from tests.test_orbit import synthetic_orbit
+from tests.test_raytrace import synthetic_wm_dataset
+
+T0 = dt.datetime(2020, 1, 30, 13, 52, 45)
+BBOX = [33.2, 33.8, -118.0, -117.4]
+HEIGHTS = [0.0, 1500.0]
+TOL = {np.float64: 1e-9, np.float32: 1e-5}
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(scope='module')
+def wm_dataset():
+    ys = np.arange(32.0, 35.01, 0.25)
+    xs = np.arange(-120.0, -115.99, 0.25)
+    zs = np.concatenate([np.arange(-500.0, 3000.0, 250.0), np.arange(3000.0, 10000.0, 500.0),
+                         np.arange(10000.0, 30001.0, 1000.0)])
+    zz, yy, xx = np.meshgrid(zs, ys, xs, indexing='ij')
+    wet = 100.0 * np.exp(-zz / 2000.0) * (1 + 0.05 * (yy - 33.5) + 0.03 * (xx + 118))
+    hydro = 270.0 * np.exp(-zz / 8000.0) * (1 + 0.02 * (yy - 33.5))
+    ds = synthetic_wm_dataset(wet_cube=wet, hydro_cube=hydro)
+    ds.variables['wet_total'].data = 0.2 * np.exp(-zz / 2000.0) * (1 + 0.03 * (xx + 118))
+    ds.variables['hydro_total'].data = 2.3 * np.exp(-zz / 8000.0) * (1 + 0.02 * (yy - 33.5))
+    return ds
+
+
+@pytest.mark.parametrize('los', ['zenith', 'raytracing'])
+@pytest.mark.parametrize('dtype', [np.float64, np.float32])
+def test_tropo_delay_matches_jax(wm_dataset, los, dtype):
+    orbit = synthetic_orbit(T0)
+    j_los = JZen() if los == 'zenith' else JRay(orbit=orbit, time=T0)
+    t_los = Zenith() if los == 'zenith' else Raytracing(orbit=orbit_from_reference(orbit), time=T0)
+    ref, _ = j_engine.tropo_delay(T0, wm_dataset, JBox(BBOX, cube_spacing_in_m=5000.0), j_los,
+                                  height_levels=HEIGHTS, compute_dtype=dtype)
+    out, _ = t_engine.tropo_delay(T0, dataset_from_reference(wm_dataset),
+                                  BoundingBox(BBOX, cube_spacing_in_m=5000.0), t_los,
+                                  height_levels=HEIGHTS, compute_dtype=dtype, device='cpu')
+    for k in ('x', 'y', 'z'):
+        np.testing.assert_array_equal(out.coords[k].data, np.asarray(ref.coords[k].data))
+    assert out.attrs['description'] == ref.attrs['description']
+    for name in ('wet', 'hydro'):
+        a, b = np.asarray(out[name].data), np.asarray(ref[name].data)
+        assert a.shape == b.shape == (2, 13, 13)
+        assert np.isfinite(a).all() and np.isfinite(b).all()
+        assert np.max(np.abs(a - b)) <= TOL[dtype]
+    assert np.mean(out['wet'].data) > (0.05 if los == 'raytracing' else 0.01)
+
+
+_NO_JAX_SCRIPT = textwrap.dedent('''
+    import sys
+    sys.modules['jax'] = None          # any import of jax now raises
+    import datetime as dt
+    import numpy as np
+    import raider_tpu_torch
+    from raider_tpu_torch.delay import tropo_delay
+    from raider_tpu_torch.geodesy import Geographic
+    from raider_tpu_torch.geometry import BoundingBox, Orbit, Raytracing, Zenith
+    from raider_tpu_torch.io import Dataset, Variable
+
+    ys, xs = np.linspace(32.0, 35.0, 7), np.linspace(-120.0, -116.0, 9)
+    zs = np.linspace(-500.0, 30000.0, 25)
+    shape = (zs.size, ys.size, xs.size)
+    cube = np.broadcast_to(np.exp(-zs / 8000.0)[:, None, None], shape).copy()
+    ds = Dataset(coords={'x': Variable(('x',), xs), 'y': Variable(('y',), ys),
+                         'z': Variable(('z',), zs)},
+                 variables={n: Variable(('z', 'y', 'x'), cube) for n in
+                            ('wet', 'hydro', 'wet_total', 'hydro_total')})
+    ds.variables['proj'] = Variable((), np.int64(0), Geographic().to_cf())
+    t0 = dt.datetime(2020, 1, 30, 13, 52, 45)
+    tt = np.arange(-600.0, 601.0, 10.0)
+    w = np.sqrt(3.986004418e14 / 7.071e6**3)
+    th, inc, lon0 = 0.55 + w * tt, np.deg2rad(98.0), np.deg2rad(-130.0)
+    x, y, z = np.cos(th), np.sin(th) * np.cos(inc), np.sin(th) * np.sin(inc)
+    pos = 7.071e6 * np.stack([np.cos(lon0) * x - np.sin(lon0) * y,
+                              np.sin(lon0) * x + np.cos(lon0) * y, z], -1)
+    orbit = Orbit(times=tt, pos=pos, vel=np.gradient(pos, 10.0, axis=0), ref_time=t0)
+    for los in (Zenith(), Raytracing(orbit=orbit, time=t0)):
+        out, _ = tropo_delay(t0, ds, BoundingBox([33.2, 33.8, -118.0, -117.4],
+                                                 cube_spacing_in_m=20000.0),
+                             los, height_levels=[0.0], device='cpu')
+        assert np.isfinite(out['wet'].data).all(), los
+    assert not any(m == 'jax' or m.startswith(('jax.', 'raider_tpu.'))
+                   for m in sys.modules if sys.modules[m] is not None)
+    print('NO_JAX_OK')
+''')
+
+
+def test_port_runs_with_jax_blocked():
+    res = subprocess.run([sys.executable, '-c', _NO_JAX_SCRIPT], cwd=REPO, capture_output=True,
+                         text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert 'NO_JAX_OK' in res.stdout
+
+
+def test_no_module_imports_jax():
+    """No line of the port imports jax or the JAX package."""
+    import re
+
+    pat = re.compile(r'^\s*(import|from) (jax|raider_tpu)\b')
+    root = os.path.join(REPO, 'raider_tpu_torch')
+    for dirpath, _, files in os.walk(root):
+        for f in files:
+            if f.endswith('.py'):
+                with open(os.path.join(dirpath, f)) as fh:
+                    bad = [line for line in fh if pat.match(line)]
+                assert not bad, (f, bad)
