@@ -18,14 +18,24 @@ Phases, each printing one line; any failure exits non-zero:
      kernel launch counts of this phase must be >= 1, the cubes mostly
      finite, and a 64x64 sub-grid of the raytraced 0 m slice must match a
      plain-torch recomputation.
+  4. the windowed path: the window ablation's scene (a 50x400x400 cube,
+     1000x1000 coherent rays) through ``integrate_rays_windowed`` (kernel
+     B3), which must take the batch; then B3 against its twin on the same
+     operands and against the brick path (B2) on the same rays.
+  5. the 16-bit probes: ``probe_f16.run`` (kernel S4 for bf16, f16 and int16,
+     kernel S5, each against its twin, and the row-gather timings).
 
-The line before the last is a JSON record of the kernels; the last line is
+Phases 3, 4 and 5 each start with the launch counts at 0 and read them when
+their path ends; the comparisons after that do not count. The line before
+the last is a JSON record of the kernels (with each kernel's bound: the
+least time the card could take for the same work, from the bytes each
+input read once and each output written once at 3.35 TB/s, or its float32
+operations at 67 TFLOP/s, whichever is larger); the last line is
 ``{"ok": true, "device": {...}}``. Data are random, made from a fixed seed.
 """
 
 import datetime as dt
 import json
-import subprocess
 import sys
 import time
 
@@ -44,26 +54,17 @@ N_RAYS = 1201 * 1001             # phase 2 rays, as many as the main path's pixe
 MODEL_GRID = (50, 400, 400)      # native levels, lat, lon of the weather model
 SPACING_M = 250.0                # output cube spacing: ~1.2M pixels over BBOX
 MIN_PIXELS = 1_000_000
+WINDOW_SIDE = 1000               # phase 4 rays per side (the window ablation's)
+WINDOW_GRID = (50, 400, 400)     # phase 4 cube
+B3_TOL = 1e-5      # max relative difference, kernel B3 vs its twin and vs B2
+PROBE_N = 1 << 20                # phase 5 block rows (the probe's)
+GATHER_ROWS = 50 * 400 * 400     # phase 5 gather table rows (the probe's)
+HBM_BYTES_PER_S = 3.35e12        # H100 SXM published peaks (NVIDIA data sheet)
+F32_FLOP_PER_S = 67e12
 
 
 def say(msg: str) -> None:
     print(msg, flush=True)
-
-
-def cuda_ms(torch, fn, reps: int = 5) -> float:
-    """Median time of ``fn`` in ms by CUDA events, after one warm-up call."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return float(np.median(times))
 
 
 def max_rel(torch, a, b) -> float:
@@ -76,11 +77,63 @@ def check(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
+def bound(n_bytes: float, flops: float) -> dict:
+    """The least time for the work: bytes at the memory rate or float32
+    operations at the peak rate, whichever takes longer."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
+    return dict(bound_ms=max(t_bytes, t_ops) * 1e3,
+                bound_by='bytes' if t_bytes >= t_ops else 'operations')
+
+
+def brick_rows_used(torch, plan, bnd_y, bnd_x, ys, xs) -> int:
+    """Distinct brick-table rows kernel B2 reads for these rays: per group,
+    the anchor row (z anchor, lowest y and x cell of the group's samples)."""
+    from raider_tpu_torch.ops.interp import _locate
+
+    rows = []
+    for g in range(plan.anchor.size):
+        if plan.pad[g].all():
+            continue
+        ay = ax = None
+        for s in range(plan.G):
+            lv, f = int(plan.lvl[g, s]), float(np.float32(plan.frac[g, s]))
+            iy = _locate(ys, bnd_y[lv] + f * (bnd_y[lv + 1] - bnd_y[lv]))[0]
+            ix = _locate(xs, bnd_x[lv] + f * (bnd_x[lv + 1] - bnd_x[lv]))[0]
+            ay = iy if ay is None else torch.minimum(ay, iy)
+            ax = ix if ax is None else torch.minimum(ax, ix)
+        rows.append((int(plan.anchor[g]) * len(ys) + ay) * len(xs) + ax)
+    return int(torch.unique(torch.cat(rows)).numel())
+
+
+def window_cells_used(torch, b) -> int:
+    """Distinct cube cells kernel B3 reads for a batch: the 8 corners of
+    every sample that passes its tests (per cube)."""
+    nz, ny, nxp = b.cube_w.shape
+    plane = ny * nxp
+    seen = torch.zeros(nz * plane, dtype=torch.bool, device=b.re.device)
+    for g in range(b.lvl.shape[0]):
+        for s in range(b.lvl.shape[1]):
+            if b.pad[g, s]:
+                continue
+            lv, f = int(b.lvl[g, s]), float(b.frac[g, s])
+            py = b.lo[0, lv] + f * (b.hi[0, lv] - b.lo[0, lv])
+            px = b.lo[1, lv] + f * (b.hi[1, lv] - b.lo[1, lv])
+            posy, posx = (py - b.ylo) * b.yinv, (px - b.xlo) * b.xinv
+            ok = (py >= b.ylo) & (posy <= ny - 1) & (px >= b.xlo) & (posx <= b.nx - 1)
+            iy = torch.floor(posy[ok]).clamp(0, ny - 2).long()
+            ix = torch.floor(posx[ok]).clamp(0, b.nx - 2).long()
+            base = int(b.za[g] + b.dzo[g, s]) * plane + iy * nxp + ix
+            for off in (0, 1, nxp, nxp + 1, plane, plane + 1, plane + nxp, plane + nxp + 1):
+                seen[base + off] = True
+    return int(seen.sum())
+
+
 def phase_kernels(torch, kernels):
     """Phase 2: both kernels against their twins at the main path's shapes."""
     from raider_tpu_torch.delay.raytrace import (build_group_plan, integrate_bricks,
                                                  integrate_bricks_ref, pack_cubes)
     from raider_tpu_torch.ops.ztd import ztd_totals, ztd_totals_ref
+    from raider_tpu_torch.scripts import cuda_ms
 
     rng = np.random.default_rng(SEED)
     dev = DEVICE
@@ -96,8 +149,8 @@ def phase_kernels(torch, kernels):
     torch.cuda.synchronize()
     b1_rel = max(max_rel(torch, w_k, w_r), max_rel(torch, h_k, h_r))
     b1_abs = float(max((w_k - w_r).abs().max(), (h_k - h_r).abs().max()))
-    b1_ms = cuda_ms(torch, lambda: ztd_totals(t, p, e, zs_d, k1, k2, k3))
-    b1_plain = cuda_ms(torch, lambda: ztd_totals_ref(t, p, e, zs_d, k1, k2, k3))
+    b1_ms = cuda_ms(lambda: ztd_totals(t, p, e, zs_d, k1, k2, k3))
+    b1_plain = cuda_ms(lambda: ztd_totals_ref(t, p, e, zs_d, k1, k2, k3))
     say(f'B1 ztd_totals {nz}x{ny}x{nx}: max-rel {b1_rel:.3e} max-abs {b1_abs:.3e} m; '
         f'kernel {b1_ms:.3f} ms, twin {b1_plain:.3f} ms')
     check(b1_rel <= B1_TOL, f'B1 max-rel {b1_rel} > {B1_TOL}')
@@ -139,17 +192,32 @@ def phase_kernels(torch, kernels):
     b2_rel = max(max_rel(torch, wk, wr), max_rel(torch, hk, hr))
     fin = torch.isfinite(wr) & torch.isfinite(hr)
     b2_abs = float(max((wk - wr)[fin].abs().max(), (hk - hr)[fin].abs().max()))
-    b2_ms = cuda_ms(torch, lambda: integrate_bricks(table, *rays, plan, ys, xs, zs))
-    b2_plain = cuda_ms(torch, lambda: integrate_bricks_ref(table, *rays, plan, ys, xs, zs))
+    b2_ms = cuda_ms(lambda: integrate_bricks(table, *rays, plan, ys, xs, zs))
+    b2_plain = cuda_ms(lambda: integrate_bricks_ref(table, *rays, plan, ys, xs, zs))
     say(f'B2 brick_integrate {nz}x{ny}x{nx} table, {n_rays} rays, {plan.anchor.size} groups: '
         f'max-rel {b2_rel:.3e} max-abs {b2_abs:.3e} m, NaN masks equal {same_nan}, '
         f'finite {float(fin.float().mean()):.4f}; kernel {b2_ms:.3f} ms, twin {b2_plain:.3f} ms')
     check(same_nan, 'B2 NaN masks differ from the twin')
     check(b2_rel <= B2_TOL, f'B2 max-rel {b2_rel} > {B2_TOL}')
     check(float(fin.float().mean()) > 0.99, 'B2 synthetic rays mostly NaN')
+    # bounds: B1 reads t, p, e and writes wet, hydro (~14 flops a cell); B2
+    # reads its ray operands, the table rows the rays use and the plan, and
+    # writes wet and hydro (~300 flops a sample)
+    cells = nz * ny * nx
+    b1_bound = bound(5 * 4 * cells, 14 * cells)
+    n_rows = brick_rows_used(torch, plan, bnd_y, bnd_x, ys, xs)
+    width = table.shape[1]
+    n_samples = int((~plan.pad).sum()) * n_rays
+    b2_bytes = 4 * n_rays * (3 * nz + 2 * (nz - 1) + 1 + 2) + 4 * width * n_rows
+    b2_bound = bound(b2_bytes, 300 * n_samples)
+    say(f'B1 bound {b1_bound}; B2 reads {n_rows} distinct table rows '
+        f'({4 * width * n_rows / 1e9:.3f} GB of the {table.numel() * 4 / 1e9:.3f} GB table), '
+        f'{b2_bytes / 1e9:.3f} GB in all: bound {b2_bound}')
     return {
-        'ztd_totals': dict(max_abs_err=b1_abs, ms=b1_ms, plain_ms=b1_plain),
-        'brick_integrate': dict(max_abs_err=b2_abs, ms=b2_ms, plain_ms=b2_plain),
+        'ztd_totals': dict(max_abs_err=b1_abs, ms=b1_ms, plain_ms=b1_plain, **b1_bound,
+                           library_ms=None),
+        'brick_integrate': dict(max_abs_err=b2_abs, ms=b2_ms, plain_ms=b2_plain, **b2_bound,
+                                library_ms=None),
     }
 
 
@@ -308,6 +376,109 @@ def phase_main_path(torch, kernels):
     return launches
 
 
+def phase_window(torch, kernels):
+    """Phase 4: the windowed path (kernel B3) on the window ablation's scene."""
+    from raider_tpu_torch.delay.pallas_window import (integrate_rays_windowed, prepare_windowed,
+                                                      window_integrate, window_integrate_ref)
+    from raider_tpu_torch.delay.raytrace import pack_cubes
+    from raider_tpu_torch.scripts import cuda_ms
+    from raider_tpu_torch.scripts import window_ablation as wa
+
+    sc = wa.build_scene(WINDOW_SIDE, grid=WINDOW_GRID, device=DEVICE, seed=SEED)
+    args = wa.windowed_args(sc)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    w3, h3, used = integrate_rays_windowed(*args, device=DEVICE)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    n_pix = WINDOW_SIDE * WINDOW_SIDE
+    check(used, 'the windowed path declined the coherent batch')
+    check(launches['window_integrate'] >= 1, f'B3 was not launched on its path: {launches}')
+
+    # B3 against its twin on the same operands (tile order)
+    b = prepare_windowed(*args, device=DEVICE)
+    wk, hk = window_integrate(b)
+    wr, hr = window_integrate_ref(b)
+    torch.cuda.synchronize()
+    same_nan = bool(torch.equal(torch.isnan(wk), torch.isnan(wr))
+                    and torch.equal(torch.isnan(hk), torch.isnan(hr)))
+    b3_rel = max(max_rel(torch, wk, wr), max_rel(torch, hk, hr))
+    fin = torch.isfinite(wr) & torch.isfinite(hr)
+    b3_abs = float(max((wk - wr)[fin].abs().max(), (hk - hr)[fin].abs().max()))
+    b3_ms = cuda_ms(lambda: window_integrate(b))
+    b3_plain = cuda_ms(lambda: window_integrate_ref(b))
+    entry_ms = cuda_ms(lambda: integrate_rays_windowed(*args, device=DEVICE))
+    prep_ms = cuda_ms(lambda: prepare_windowed(*args, device=DEVICE))
+    say(f'B3 window_integrate {WINDOW_GRID} cube, {n_pix} rays ({b.re.shape[0]} in '
+        f'{b.ay.shape[0]} tiles), {b.lvl.shape[0]} groups, WY {b.wy}: vs twin max-rel '
+        f'{b3_rel:.3e} max-abs {b3_abs:.3e} m, NaN masks equal {same_nan}; kernel {b3_ms:.3f} ms, '
+        f'twin {b3_plain:.3f} ms; entry point {entry_ms:.3f} ms (tile order and pre-pass '
+        f'{prep_ms:.3f} ms; first call {first_s:.3f} s)')
+    check(same_nan, 'B3 NaN masks differ from the twin')
+    check(b3_rel <= B3_TOL, f'B3 max-rel vs twin {b3_rel} > {B3_TOL}')
+
+    # B3 against the brick path on the same rays
+    pack_ms = cuda_ms(lambda: pack_cubes(sc['wet'], sc['hydro'], grouped=True))
+    table, mode = pack_cubes(sc['wet'], sc['hydro'], grouped=True)
+    w2, h2 = wa.brick(sc, table, mode)
+    b2_ms = cuda_ms(lambda: wa.brick(sc, table, mode))
+    del table
+    both = torch.isfinite(w3) & torch.isfinite(w2) & torch.isfinite(h3) & torch.isfinite(h2)
+    rel_b2 = max(max_rel(torch, w3[both], w2[both]), max_rel(torch, h3[both], h2[both]))
+    only3 = int((torch.isnan(w3) & ~torch.isnan(w2)).sum())
+    only2 = int((torch.isnan(w2) & ~torch.isnan(w3)).sum())
+    fin3 = float((torch.isfinite(w3) & torch.isfinite(h3)).float().mean())
+    say(f'B3 vs brick path (B2) on the same rays: max-rel {rel_b2:.3e}, NaN only in B3 {only3}, '
+        f'only in B2 {only2}, B3 finite {fin3:.6f}; brick pack {pack_ms:.3f} ms + integrate '
+        f'{b2_ms:.3f} ms = {pack_ms + b2_ms:.3f} ms against windowed {entry_ms:.3f} ms')
+    check(rel_b2 < B3_TOL, f'B3 vs B2 max-rel {rel_b2} >= {B3_TOL}')
+    check(fin3 >= 0.999, f'B3 finite share {fin3} < 0.999')
+
+    # bound: the segment operands, Re, the anchors, the cube cells read
+    # (both cubes) and wet/hydro written; ~70 flops a sample
+    n = b.re.shape[0]
+    n_cells = window_cells_used(torch, b)
+    n_samples = int((~b.pad).sum()) * n
+    b3_bytes = 4 * (b.lo.numel() + b.hi.numel() + b.d2.numel() + b.ray_len.numel() + 3 * n
+                    + 2 * b.ay.numel() + 2 * n_cells)
+    b3_bound = bound(b3_bytes, 70 * n_samples)
+    say(f'B3 reads {n_cells} distinct cells of each cube, {b3_bytes / 1e9:.3f} GB in all: '
+        f'bound {b3_bound}')
+    return launches, dict(max_abs_err=b3_abs, ms=b3_ms, plain_ms=b3_plain, **b3_bound,
+                          library_ms=None, entry_ms=entry_ms, prepare_ms=prep_ms,
+                          brick_pack_ms=pack_ms,
+                          brick_ms=b2_ms, max_rel_vs_brick=rel_b2)
+
+
+def phase_probes(torch, kernels):
+    """Phase 5: the 16-bit probes (kernels S4 and S5) through their entry point."""
+    from raider_tpu_torch.scripts import cuda_ms, probe_f16
+
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    records = probe_f16.run(DEVICE, n=PROBE_N, gather_rows=GATHER_ROWS, say=say)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    loads = {k.removeprefix('probe_load_'): r for r in records for k in r if k.startswith('probe_load_')}
+    cast = next(r for r in records if 'bitcast_i16_bf16' in r)
+    check(len(loads) == 3 and all(r['max_abs_err'] == 0.0 for r in loads.values()),
+          f'S4 differs from its twin: {loads}')
+    check(cast['max_abs_err'] == 0.0, f'S5 differs from its twin: {cast}')
+    check(launches['probe_load'] >= 1 and launches['probe_bitcast_i16_bf16'] >= 1,
+          f'a probe kernel was not launched on its path: {launches}')
+    x = probe_f16.make_block(torch.bfloat16, PROBE_N, DEVICE).view(torch.int16)
+    cast_library = cuda_ms(lambda: x.view(torch.bfloat16).to(torch.float32))
+    row = PROBE_N * probe_f16.WIDTH
+    s4 = dict(max_abs_err=max(r['max_abs_err'] for r in loads.values()), ms=loads['bf16']['ms'],
+              plain_ms=loads['bf16']['plain_ms'], **bound(2 * row + 4 * PROBE_N, 16 * PROBE_N),
+              library_ms=None, ms_by_dtype={k: r['ms'] for k, r in loads.items()})
+    s5 = dict(max_abs_err=cast['max_abs_err'], ms=cast['ms'], plain_ms=cast['plain_ms'],
+              **bound(6 * row, 0), library_ms=cast_library)
+    return launches, s4, s5
+
+
 def main() -> int:
     import torch
 
@@ -317,6 +488,7 @@ def main() -> int:
         return 1
     try:
         from raider_tpu_torch import kernels
+        from raider_tpu_torch.scripts import card
     except ImportError as exc:
         print(f'chip_smoke: cannot import raider_tpu_torch ({exc}); run from the repo root',
               file=sys.stderr)
@@ -325,9 +497,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision('highest')
-    smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
-                         capture_output=True, text=True, check=True, timeout=60)
-    say(smi.stdout.strip().splitlines()[0])
+    say(card())
     say(f'device: {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; '
         f'torch {torch.__version__}, CUDA {torch.version.cuda}; '
         f'matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}, '
@@ -341,6 +511,8 @@ def main() -> int:
 
     measured = phase_kernels(torch, kernels)
     launches = phase_main_path(torch, kernels)
+    launches_w, b3 = phase_window(torch, kernels)
+    launches_p, s4, s5 = phase_probes(torch, kernels)
 
     record = {'kernels': [
         {'name': 'ztd_totals', 'route': 'cuda', 'source': 'raider_tpu_torch/csrc/ztd_totals.cu',
@@ -350,6 +522,15 @@ def main() -> int:
          'source': 'raider_tpu_torch/csrc/brick_integrate.cu',
          'replaces': 'raider_tpu/delay/raytrace.py:704', 'launches': launches['brick_integrate'],
          **measured['brick_integrate']},
+        {'name': 'window_integrate', 'route': 'cuda',
+         'source': 'raider_tpu_torch/csrc/window_integrate.cu',
+         'replaces': 'raider_tpu/delay/pallas_window.py:217',
+         'launches': launches_w['window_integrate'], **b3},
+        {'name': 'probe_load', 'route': 'cuda', 'source': 'raider_tpu_torch/csrc/probe_f16.cu',
+         'replaces': 'scripts/probe_f16.py:53', 'launches': launches_p['probe_load'], **s4},
+        {'name': 'probe_bitcast_i16_bf16', 'route': 'cuda',
+         'source': 'raider_tpu_torch/csrc/probe_f16.cu', 'replaces': 'scripts/probe_f16.py:88',
+         'launches': launches_p['probe_bitcast_i16_bf16'], **s5},
     ]}
     say(json.dumps(record))
     say(json.dumps({'ok': True, 'device': {'platform': 'gpu',

@@ -6,9 +6,9 @@ The PyTorch port of ``raider_tpu``. It mirrors that package path for path
 ``tests/test_torch_*.py`` parity tests.
 
 Design:
-  * Plain PyTorch on tensors; every public entry point takes an explicit
-    ``device`` and creates its tensors there. Nothing falls back to the CPU
-    when a GPU is missing.
+  * Plain PyTorch on tensors; every public entry point takes a ``device``
+    (the CUDA card unless the caller names another) and creates its tensors
+    there. Nothing falls back to the CPU when a GPU is missing.
   * Geometry (orbits, ray/level intersections, CRS transforms) runs in torch
     float64 on the device: the H100 computes f64 in hardware, so the JAX
     package's float32-pair (df64) layer has no counterpart here.

@@ -36,6 +36,7 @@ from raider_tpu_torch.geometry.rays import build_ray, level_heights
 from raider_tpu_torch.io import Dataset, Variable, read_nc
 from raider_tpu_torch.logger import logger
 from raider_tpu_torch.ops import grid_weights, interp3d_points, interp3d_separable
+from raider_tpu_torch.utils import require_device
 
 
 def torch_dtype(dtype) -> torch.dtype:
@@ -83,16 +84,17 @@ def tropo_delay(
     zref: Optional[float] = None,
     compute_dtype=None,
     *,
-    device,
+    device='cuda',
 ):
     """Delays on a cube-type AOI: returns (Dataset, None).
 
     ``weather_model_file`` is a processed-weather Dataset or a file path;
-    all computation runs on ``device``. ``compute_dtype`` (of the delay
-    kernels) defaults to float32 on CUDA and float64 on the CPU, like the
-    JAX package's accelerator/CPU default.
+    all computation runs on ``device``, the CUDA card unless the caller
+    names another (without CUDA the default raises; nothing falls back).
+    ``compute_dtype`` (of the delay kernels) defaults to float32 on CUDA and
+    float64 on the CPU, like the JAX package's accelerator/CPU default.
     """
-    device = torch.device(device)
+    device = require_device(device)
     if compute_dtype is None:
         compute_dtype = torch.float32 if device.type == 'cuda' else torch.float64
     compute_dtype = torch_dtype(compute_dtype)

@@ -1,9 +1,10 @@
 """Build and launch layer for the hand-written CUDA kernels in ``csrc/``.
 
-The ``.cu`` sources expose a plain C interface. At first use they are
-compiled by ``nvcc`` for sm_90a into one shared library under
-``<repo>/build/kernels/``, named by a hash of the sources and flags, and
-loaded with ``ctypes``: no PyTorch headers, so a build takes seconds.
+The ``.cu`` sources expose a plain C interface. At first use each source
+is compiled by its own ``nvcc`` for sm_90a, all started together, and the
+objects are linked into one shared library under ``<repo>/build/kernels/``,
+named by a hash of the sources and flags, and loaded with ``ctypes``: no
+PyTorch headers, so a build takes seconds.
 
 Each launcher takes device pointers and torch's current stream, allocates
 nothing, and returns ``cudaGetLastError()``; a non-zero code raises here.
@@ -24,9 +25,13 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parents[2] / 'build' / 'kernels'
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
-              '-shared', '-Xcompiler', '-fPIC']
+              '-Xcompiler', '-fPIC']
 
-LAUNCHES = {'ztd_totals': 0, 'brick_integrate': 0}
+LAUNCHES = {'ztd_totals': 0, 'brick_integrate': 0, 'window_integrate': 0, 'probe_load': 0,
+            'probe_bitcast_i16_bf16': 0}
+
+# element types of the S4 probe, by the suffix of their launcher
+PROBE_DTYPES = {'bf16': torch.bfloat16, 'f16': torch.float16, 'i16': torch.int16}
 
 _lib = None
 build_seconds = None   # wall time of the build in this process (None: loaded a cached .so)
@@ -58,20 +63,39 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile ``csrc/*.cu`` into the hashed library unless it exists."""
+    """Compile ``csrc/*.cu`` into the hashed library unless it exists: one
+    ``nvcc -c`` per source, all running at once, then one link."""
     global build_seconds
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f'.{os.getpid()}.tmp')
-    cmd = [_nvcc(), *NVCC_FLAGS, '-o', str(tmp),
-           *[str(s) for s in sorted(CSRC.glob('*.cu'))]]
+    nvcc = _nvcc()
+    tag = f'{out.stem}.{os.getpid()}'
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f'nvcc failed ({res.returncode}):\n{res.stderr}')
-    os.replace(tmp, out)
+    jobs = []
+    for src in sorted(CSRC.glob('*.cu')):
+        obj = BUILD_DIR / f'{src.stem}.{tag}.o'
+        jobs.append((src, obj, subprocess.Popen([nvcc, *NVCC_FLAGS, '-c', '-o', str(obj), str(src)],
+                                                stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                                text=True)))
+    errors = []
+    for src, _, proc in jobs:
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f'{src.name} ({proc.returncode}):\n{err}')
+    tmp = out.with_suffix(f'.{os.getpid()}.tmp')
+    try:
+        if errors:
+            raise RuntimeError('nvcc failed: ' + '\n'.join(errors))
+        res = subprocess.run([nvcc, *NVCC_FLAGS, '-shared', '-o', str(tmp),
+                              *[str(obj) for _, obj, _ in jobs]], capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f'nvcc link failed ({res.returncode}):\n{res.stderr}')
+        os.replace(tmp, out)
+    finally:
+        for path in [obj for _, obj, _ in jobs] + [tmp]:
+            path.unlink(missing_ok=True)
     build_seconds = time.perf_counter() - t0
     return out
 
@@ -96,6 +120,22 @@ def lib() -> ctypes.CDLL:
             f, f, i,             # z lo, hi, z_clip
             p]                   # stream
         so.brick_integrate_launch.restype = i
+        so.window_integrate_launch.argtypes = [
+            p, p, p, p, p,       # lo, hi, d2, ray_len, re
+            p, p,                # cube_w, cube_h
+            p, p, p, p, p,       # ay, ax, plan_i, plan_f, za
+            p,                   # out (2, N)
+            ll, i, i, i, i, i, i, i, i, i,   # n, L, n_groups, G, wy, wx, tile, ny, nx, nxp
+            f, f, f, f,          # y lo, y inv, x lo, x inv
+            f, f, i,             # z lo, hi, z_clip
+            p]                   # stream
+        so.window_integrate_launch.restype = i
+        for dt in PROBE_DTYPES:
+            fn = getattr(so, f'probe_load_{dt}_launch')
+            fn.argtypes = [p, p, ll, p]
+            fn.restype = i
+        so.probe_bitcast_i16_bf16_launch.argtypes = [p, p, ll, p]
+        so.probe_bitcast_i16_bf16_launch.restype = i
         _lib = so
     return _lib
 
@@ -139,3 +179,34 @@ def launch_brick_integrate(table, bnd_y, bnd_x, bnd_z, d2, ray_len, re, plan_i, 
         z_lo, z_hi, int(z_clip), _stream())
     _check('brick_integrate', code)
     LAUNCHES['brick_integrate'] += 1
+
+
+def launch_window_integrate(lo, hi, d2, ray_len, re, cube_w, cube_h, ay, ax, plan_i, plan_f,
+                            za, out, *, wy, wx, tile, nx, y_lo, y_inv, x_lo, x_inv,
+                            z_lo, z_hi, z_clip) -> None:
+    """Kernel B3 (arguments checked by the caller)."""
+    _, L, n = lo.shape
+    n_groups, G = plan_i.shape[:2]
+    ny, nxp = cube_w.shape[1:]
+    code = lib().window_integrate_launch(
+        _ptr(lo), _ptr(hi), _ptr(d2), _ptr(ray_len), _ptr(re), _ptr(cube_w), _ptr(cube_h),
+        _ptr(ay), _ptr(ax), _ptr(plan_i), _ptr(plan_f), _ptr(za), _ptr(out),
+        n, L, n_groups, G, wy, wx, tile, ny, nx, nxp,
+        y_lo, y_inv, x_lo, x_inv, z_lo, z_hi, int(z_clip), _stream())
+    _check('window_integrate', code)
+    LAUNCHES['window_integrate'] += 1
+
+
+def launch_probe_load(x, out) -> None:
+    """Kernel S4 on an (n, 128) 16-bit CUDA tensor (checked by the caller)."""
+    suffix = {v: k for k, v in PROBE_DTYPES.items()}[x.dtype]
+    code = getattr(lib(), f'probe_load_{suffix}_launch')(_ptr(x), _ptr(out), x.shape[0], _stream())
+    _check('probe_load', code)
+    LAUNCHES['probe_load'] += 1
+
+
+def launch_probe_bitcast_i16_bf16(x, out) -> None:
+    """Kernel S5 on an (n, 128) int16 CUDA tensor (checked by the caller)."""
+    code = lib().probe_bitcast_i16_bf16_launch(_ptr(x), _ptr(out), x.numel(), _stream())
+    _check('probe_bitcast_i16_bf16', code)
+    LAUNCHES['probe_bitcast_i16_bf16'] += 1

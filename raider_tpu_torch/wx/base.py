@@ -27,6 +27,7 @@ from raider_tpu_torch.constants import _ZMIN, _ZREF, R_D, R_V, _g0
 from raider_tpu_torch.geodesy import Geographic, geo_to_ht
 from raider_tpu_torch.io import Dataset, Variable, write_nc
 from raider_tpu_torch.ops import interp_along_axis, ztd_totals
+from raider_tpu_torch.utils import require_device
 
 
 def find_svp(t):
@@ -195,15 +196,16 @@ class WeatherModel:
     def load_weather(self, *args, **kwargs) -> None:
         raise NotImplementedError
 
-    def load(self, *args, device, _zlevels=None, **kwargs):
-        """Run the preprocessing pipeline on ``device``.
+    def load(self, *args, device='cuda', _zlevels=None, **kwargs):
+        """Run the preprocessing pipeline on ``device`` (the CUDA card unless
+        the caller names another; without CUDA the default raises).
 
         When the latitude/longitude bounds are set and the processed file
         already exists, returns its path and computes nothing (as the JAX
         package does); otherwise returns None and the result stays in
         memory (:meth:`to_dataset`, :meth:`write`).
         """
-        self._device = torch.device(device)
+        self._device = require_device(device)
         outLoc = self.get_wmLoc()
         if self._ll_bounds is not None:
             self._out_name = self.out_file(outLoc)

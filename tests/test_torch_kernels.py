@@ -6,20 +6,25 @@ card and without jax:
 
     python -m pytest tests/test_torch_kernels.py --noconftest -p no:cacheprovider -q
 
-Both kernels use round-to-nearest arithmetic in their twins' order of
-operations, so on a NaN-free table they must agree with the twins exactly;
-the stated tolerances (B1 2e-6, B2 1e-5 relative) are the contract the
-smoke run holds them to.
+The kernels use round-to-nearest arithmetic in their twins' order of
+operations, so on NaN-free inputs they must agree with the twins exactly;
+the stated tolerances (B1 2e-6, B2 and B3 1e-5 relative; S4 and S5 exact)
+are the contract the smoke run holds them to.
 """
+
+import os
 
 import numpy as np
 import pytest
 import torch
 
 from raider_tpu_torch import kernels
+from raider_tpu_torch.delay.pallas_window import (integrate_rays_windowed, prepare_windowed,
+                                                  window_integrate, window_integrate_ref)
 from raider_tpu_torch.delay.raytrace import (build_group_plan, integrate_bricks,
                                              integrate_bricks_ref, pack_cubes)
 from raider_tpu_torch.ops.ztd import ztd_totals, ztd_totals_ref
+from raider_tpu_torch.scripts import probe_f16, window_ablation
 
 K1, K2, K3 = 0.776, 0.233, 3.75e3
 
@@ -101,13 +106,51 @@ def test_library_name_tracks_the_sources():
     p = kernels.library_path()
     assert p == kernels.library_path()
     assert p.parent == kernels.BUILD_DIR and p.name.startswith('libraider_kernels_')
-    assert {s.name for s in kernels._sources()} >= {'ztd_totals.cu', 'brick_integrate.cu'}
+    assert {s.name for s in kernels._sources()} >= {'ztd_totals.cu', 'brick_integrate.cu',
+                                                     'window_integrate.cu', 'probe_f16.cu'}
+
+
+_FAKE_NVCC = """#!/bin/sh
+# stands in for nvcc: writes the -o file; fails on probe_f16.cu if asked to
+out=""
+while [ $# -gt 0 ]; do
+  case "$1" in
+    -o) out="$2"; shift ;;
+    *probe_f16.cu) if [ -n "$FAIL_ON_PROBE" ]; then echo "probe_f16.cu: error" >&2; exit 2; fi ;;
+  esac
+  shift
+done
+echo built > "$out"
+"""
+
+
+@pytest.mark.parametrize('fail', [False, True])
+def test_build_compiles_each_source_then_links(tmp_path, monkeypatch, fail):
+    """One nvcc per source, then a link; a failed source raises with its
+    message and leaves no object or partial library behind."""
+    fake = tmp_path / 'bin' / 'nvcc'
+    fake.parent.mkdir()
+    fake.write_text(_FAKE_NVCC)
+    fake.chmod(0o755)
+    monkeypatch.setenv('PATH', f'{fake.parent}{os.pathsep}{os.environ["PATH"]}')
+    monkeypatch.setattr(kernels, 'BUILD_DIR', tmp_path / 'build')
+    if fail:
+        monkeypatch.setenv('FAIL_ON_PROBE', '1')
+        with pytest.raises(RuntimeError, match='probe_f16.cu: error'):
+            kernels.build()
+        assert list((tmp_path / 'build').iterdir()) == []
+    else:
+        out = kernels.build()
+        assert out == kernels.library_path() and out.read_text() == 'built\n'
+        assert [p.name for p in (tmp_path / 'build').iterdir()] == [out.name]
 
 
 def test_reset_launch_counts():
     kernels.LAUNCHES['ztd_totals'] += 3
+    kernels.LAUNCHES['window_integrate'] += 2
     kernels.reset_launch_counts()
-    assert kernels.LAUNCHES == {'ztd_totals': 0, 'brick_integrate': 0}
+    assert kernels.LAUNCHES == {'ztd_totals': 0, 'brick_integrate': 0, 'window_integrate': 0,
+                                'probe_load': 0, 'probe_bitcast_i16_bf16': 0}
 
 
 @pytest.mark.parametrize('case', ['plain', 'bad_rays', 'window'])
@@ -189,3 +232,77 @@ def test_brick_kernel_rejects_float64(cuda):
     table, rays, plan, ys, xs, zs = _brick_case(cuda, n_rays=64)
     with pytest.raises(ValueError):
         integrate_bricks(table.double(), *[r.double() for r in rays], plan, ys, xs, zs)
+
+
+def _rel(a, b) -> float:
+    ok = ~torch.isnan(b)
+    return float(((a[ok] - b[ok]).abs() / b[ok].abs()).max())
+
+
+def _window_scene(device, bad_rays=False):
+    """The window ablation's scene, cut to 96 x 96 rays on a 20x60x60 cube."""
+    sc = window_ablation.build_scene(96, grid=(20, 60, 60), device=device, seed=5)
+    if bad_rays:
+        for k in ('low', 'high'):
+            sc[k][:, :7, 0] = float('nan')    # NaN rays
+            sc[k][:, 40, 1] += 5.0            # a ray out of the grid
+    return sc
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', ['coherent', 'bad_rays'])
+def test_window_kernel_matches_twin(cuda, case):
+    sc = _window_scene(cuda, bad_rays=case == 'bad_rays')
+    b = prepare_windowed(*window_ablation.windowed_args(sc), device=cuda)
+    before = kernels.LAUNCHES['window_integrate']
+    w, h = window_integrate(b)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES['window_integrate'] == before + 1
+    rw, rh = window_integrate_ref(b)
+    for a, r in ((w, rw), (h, rh)):
+        assert torch.equal(torch.isnan(a), torch.isnan(r))
+        assert _rel(a, r) <= 1e-5
+    assert torch.isnan(w).any() == (case == 'bad_rays')
+
+
+@pytest.mark.cuda
+def test_window_entry_point_defaults_to_the_card(cuda):
+    sc = _window_scene(cuda)
+    before = kernels.LAUNCHES['window_integrate']
+    w, h, used = integrate_rays_windowed(*window_ablation.windowed_args(sc))
+    assert used and w.device.type == 'cuda' and torch.isfinite(w).all()
+    assert kernels.LAUNCHES['window_integrate'] == before + 1
+    table, mode = pack_cubes(sc['wet'], sc['hydro'], grouped=True)
+    bw, bh = window_ablation.brick(sc, table, mode)
+    assert window_ablation.max_rel(w, bw) < 1e-5 and window_ablation.max_rel(h, bh) < 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', list(kernels.PROBE_DTYPES))
+def test_probe_load_kernel_matches_twin(cuda, dtype):
+    x = probe_f16.make_block(kernels.PROBE_DTYPES[dtype], n=4096 + 37, device=cuda)
+    before = kernels.LAUNCHES['probe_load']
+    got = probe_f16.probe_load(x)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES['probe_load'] == before + 1
+    assert torch.equal(got, probe_f16.probe_load_ref(x))
+
+
+@pytest.mark.cuda
+def test_probe_bitcast_kernel_matches_twin(cuda):
+    x = probe_f16.make_block(torch.bfloat16, n=4096 + 37, device=cuda).view(torch.int16)
+    before = kernels.LAUNCHES['probe_bitcast_i16_bf16']
+    got = probe_f16.probe_bitcast_i16_bf16(x)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES['probe_bitcast_i16_bf16'] == before + 1
+    assert torch.equal(got, probe_f16.probe_bitcast_i16_bf16_ref(x))
+
+
+@pytest.mark.cuda
+def test_probe_kernels_reject_non_contiguous(cuda):
+    x = probe_f16.make_block(torch.int16, n=64, device=cuda)
+    x = torch.cat([x, x], 1)[:, ::2]
+    with pytest.raises(ValueError):
+        probe_f16.probe_load(x)
+    with pytest.raises(ValueError):
+        probe_f16.probe_bitcast_i16_bf16(x)

@@ -12,6 +12,7 @@ refractivities, sums of ~100 samples).
 """
 
 import datetime as dt
+import inspect
 import os
 import subprocess
 import sys
@@ -19,6 +20,7 @@ import textwrap
 
 import numpy as np
 import pytest
+import torch
 
 from raider_tpu.delay import engine as j_engine
 from raider_tpu.geometry.aoi import BoundingBox as JBox
@@ -108,6 +110,12 @@ _NO_JAX_SCRIPT = textwrap.dedent('''
                                                  cube_spacing_in_m=20000.0),
                              los, height_levels=[0.0], device='cpu')
         assert np.isfinite(out['wet'].data).all(), los
+    from raider_tpu_torch.delay.pallas_window import integrate_rays_windowed
+    from raider_tpu_torch.scripts import probe_f16, window_ablation
+    rec = window_ablation.run(window_ablation.build_scene(64, grid=(20, 60, 60), device='cpu'),
+                              say=lambda s: None)
+    assert rec['max_rel'] < 1e-5, rec
+    assert all(r['max_abs_err'] == 0.0 for r in probe_f16.run('cpu', n=64, say=lambda s: None))
     assert not any(m == 'jax' or m.startswith(('jax.', 'raider_tpu.'))
                    for m in sys.modules if sys.modules[m] is not None)
     print('NO_JAX_OK')
@@ -119,6 +127,28 @@ def test_port_runs_with_jax_blocked():
                          text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]
     assert 'NO_JAX_OK' in res.stdout
+
+
+def test_entry_points_default_to_the_card():
+    from raider_tpu_torch.delay.pallas_window import integrate_rays_windowed
+    from raider_tpu_torch.wx.base import WeatherModel
+
+    for fn in (t_engine.tropo_delay, WeatherModel.load, integrate_rays_windowed):
+        assert inspect.signature(fn).parameters['device'].default == 'cuda', fn
+
+
+def test_default_device_without_cuda_raises(wm_dataset):
+    """No fallback: without CUDA, a call that names no device raises."""
+    from raider_tpu_torch.wx.base import WeatherModel
+
+    if torch.cuda.is_available():
+        pytest.skip('checks the machine without CUDA')
+    with pytest.raises(RuntimeError, match='CUDA'):
+        t_engine.tropo_delay(T0, dataset_from_reference(wm_dataset),
+                             BoundingBox(BBOX, cube_spacing_in_m=5000.0), Zenith(),
+                             height_levels=HEIGHTS)
+    with pytest.raises(RuntimeError, match='CUDA'):
+        WeatherModel().load()
 
 
 def test_no_module_imports_jax():
