@@ -24,8 +24,18 @@ Phases, each printing one line; any failure exits non-zero:
      operands and against the brick path (B2) on the same rays.
   5. the 16-bit probes: ``probe_f16.run`` (kernel S4 for bf16, f16 and int16,
      kernel S5, each against its twin, and the row-gather timings).
+  6. the kernel profile: ``kernel_profile.run`` on its own scene (50x400x400
+     random cubes, 1M incoherent rays), spec (7,3,3,6) through prod, tensor,
+     pallas (K1), pallas2 (K2), prodmerged (K3), prodpallas (B2) and prodi16
+     (K4), then split, then spec (8,4,4,24) through pallas2 and prodpallas
+     (24 samples a group); each passes the script's 4096-ray check. Then
+     K1-K4 against their twins on all rays, K4 also against B2.
+  7. large cubes through ``integrate_rays`` with the mode ``pack_mode_for``
+     picks: bench's midcube (50x640x640, brick_i16, kernel K4) against
+     pack16, and the HRRR CONUS grid (50x1059x1799, pack16_i16) against
+     pack4, on 1M rays each.
 
-Phases 3, 4 and 5 each start with the launch counts at 0 and read them when
+Phases 3 to 7 each start with the launch counts at 0 and read them when
 their path ends; the comparisons after that do not count. The line before
 the last is a JSON record of the kernels (with each kernel's bound: the
 least time the card could take for the same work, from the bytes each
@@ -59,6 +69,14 @@ WINDOW_GRID = (50, 400, 400)     # phase 4 cube
 B3_TOL = 1e-5      # max relative difference, kernel B3 vs its twin and vs B2
 PROBE_N = 1 << 20                # phase 5 block rows (the probe's)
 GATHER_ROWS = 50 * 400 * 400     # phase 5 gather table rows (the probe's)
+PROFILE_GRID = (50, 400, 400)    # phase 6: the kernel profile's scene
+PROFILE_RAYS = 1_000_000
+PROFILE_VARIANTS = ('prod', 'tensor', 'pallas', 'pallas2', 'prodmerged', 'prodpallas', 'prodi16')
+K_TOL = 1e-5       # max relative difference, kernels K1-K4 vs their twins
+I16_TOL = 1e-4     # metres, an int16 table vs the exact one on the same rays
+MID_GRID = (50, 640, 640)        # phase 7: bench.py's midcube
+BIG_GRID = (50, 1059, 1799)      # phase 7: bench.py's bigcube (HRRR CONUS)
+LARGE_RAYS = 1_000_000
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM published peaks (NVIDIA data sheet)
 F32_FLOP_PER_S = 67e12
 
@@ -479,6 +497,231 @@ def phase_probes(torch, kernels):
     return launches, s4, s5
 
 
+def compare(torch, got, want) -> tuple:
+    """(max-rel, max-abs over entries finite in ``want``, NaN masks equal)
+    of matching tensor sequences."""
+    rel, err, same = 0.0, 0.0, True
+    for a, b in zip(got, want):
+        same = same and bool(torch.equal(torch.isnan(a), torch.isnan(b)))
+        rel = max(rel, max_rel(torch, a, b))
+        fin = torch.isfinite(b)
+        if bool(fin.any()):
+            err = max(err, float((a[fin] - b[fin]).abs().max()))
+    return rel, err, same
+
+
+def phase_profile(torch, kernels):
+    """Phase 6: the kernel profile's path, then K1-K4 against their twins."""
+    from raider_tpu_torch.delay.raytrace import integrate_bricks, integrate_bricks_ref
+    from raider_tpu_torch.scripts import cuda_ms
+    from raider_tpu_torch.scripts import kernel_profile as kp
+
+    sc = kp.build_scene(DEVICE, n_rays=PROFILE_RAYS, grid=PROFILE_GRID, seed=SEED)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    recs = kp.run(DEVICE, (7, 3, 3, 6), PROFILE_VARIANTS, scene=sc, say=say)
+    recs += kp.run(DEVICE, 'split', scene=sc, say=say)
+    recs += kp.run(DEVICE, (8, 4, 4, 24), ('pallas2', 'prodpallas'), scene=sc, say=say)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    say(f'kernel profile path: {time.perf_counter() - t0:.1f} s; launches {launches}')
+    for k in ('brick_contract', 'brick_group_rows', 'brick_group_merged', 'brick_integrate_i16'):
+        check(launches[k] >= 1, f'{k} was not launched on the kernel-profile path: {launches}')
+    timed = {(tuple(r['spec']), r['variant']): r['ms'] for r in recs if 'spec' in r}
+
+    st = kp.spec_setup(sc, (7, 3, 3, 6))
+    planes, wy, wx, groups = st['planes'], st['wy'], st['wx'], st['groups']
+    ys, xs, zs, rays = sc['ys'], sc['xs'], sc['zs'], sc['rays']
+    n = rays[0].shape[1]
+    consts = kp.group_consts(ys, xs, zs, wy, wx)
+    out = {}
+
+    def hold(name, ops, kernel, twin, n_bytes, flops):
+        got = [kernel(*o) for o in ops]
+        want = [twin(*o) for o in ops]
+        torch.cuda.synchronize()
+        # K1 returns (wet, hydro), K2/K3 a (2, N) part: both iterate as two rows
+        rel, err, same = compare(torch, [t for p in got for t in p], [t for p in want for t in p])
+        ms = cuda_ms(lambda: [kernel(*o) for o in ops])
+        plain = cuda_ms(lambda: [twin(*o) for o in ops])
+        b = bound(n_bytes, flops)
+        say(f'{name} vs twin on {n} rays, {len(ops)} groups: max-rel {rel:.3e} max-abs {err:.3e}, '
+            f'NaN masks equal {same}; kernel {ms:.3f} ms, twin {plain:.3f} ms; bound {b}')
+        check(same, f'{name} NaN masks differ from the twin')
+        check(rel <= K_TOL, f'{name} max-rel {rel} > {K_TOL}')
+        out[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain, **b, library_ms=None)
+
+    ops = [o + (planes, wy, wx) for o in kp.contract_inputs(st['table'], rays, groups, wy, wx,
+                                                          ys, xs, zs)]
+    hold('brick_contract', ops, kp.brick_contract, kp.contract_ref,
+         sum(4 * (o[0].numel() + o[1].numel() + 2 * n) for o in ops),
+         sum(n * o[0].shape[1] * (12 * len(o[2]) + 6) for o in ops))
+    out['brick_contract']['variant_ms'] = timed[(7, 3, 3, 6), 'pallas']
+    del ops
+    ops = [o + (consts,) for o in kp.rows_inputs(st['table'], rays, groups, ys, xs)]
+    hold('brick_group_rows', ops, kp.brick_group_rows, kp.group_rows_ref,
+         sum(4 * (sum(t.numel() for t in o[:7]) + 2 * n) for o in ops),
+         sum(n * len(o[7]) * (60 + 8 * wy * wx) for o in ops))
+    out['brick_group_rows']['variant_ms'] = timed[(7, 3, 3, 6), 'pallas2']
+    out['brick_group_rows']['g24_variant_ms'] = timed[(8, 4, 4, 24), 'pallas2']
+    del ops
+    ops = [o + (consts,) for o in kp.merged_inputs(st['table'], rays, groups, ys, xs)]
+    hold('brick_group_merged', ops, kp.brick_group_merged, kp.group_merged_ref,
+         sum(4 * (o[0].numel() + o[1].numel() + 2 * n) for o in ops),
+         sum(n * len(o[2]) * (60 + 8 * wy * wx) for o in ops))
+    out['brick_group_merged']['variant_ms'] = timed[(7, 3, 3, 6), 'prodmerged']
+    del ops
+
+    # K4: the spec's int16 table against its twin, and against B2 on f32
+    from raider_tpu_torch.delay.raytrace import _pack_bricks, _quantized_pair
+
+    plan = st['plan']
+    qw, qh, deq = _quantized_pair(sc['wet_d'], sc['hydro_d'])
+    t16 = _pack_bricks(qw, qh, planes, wy, wx)
+    del qw, qh
+    wk, hk = integrate_bricks(t16, *rays, plan, ys, xs, zs, deq=deq)
+    wr, hr = integrate_bricks_ref(t16, *rays, plan, ys, xs, zs, deq=deq)
+    w2, h2 = integrate_bricks(st['table'], *rays, plan, ys, xs, zs)
+    torch.cuda.synchronize()
+    rel, err, same = compare(torch, (wk, hk), (wr, hr))
+    _, err_b2, same_b2 = compare(torch, (wk, hk), (w2, h2))
+    ms = cuda_ms(lambda: integrate_bricks(t16, *rays, plan, ys, xs, zs, deq=deq))
+    plain = cuda_ms(lambda: integrate_bricks_ref(t16, *rays, plan, ys, xs, zs, deq=deq))
+    b2_ms = cuda_ms(lambda: integrate_bricks(st['table'], *rays, plan, ys, xs, zs))
+    n_rows = brick_rows_used(torch, plan, rays[0], rays[1], ys, xs)
+    L = rays[3].shape[0]
+    k4_bytes = 4 * n * (3 * (L + 1) + 2 * L + 1 + 2) + 2 * t16.shape[1] * n_rows
+    b = bound(k4_bytes, 300 * plan.n_points * n)
+    say(f'brick_integrate_i16 vs twin on {n} rays: max-rel {rel:.3e} max-abs {err:.3e} m, NaN masks '
+        f'equal {same}; vs f32 B2 max-abs {err_b2:.3e} m, NaN masks equal {same_b2}; kernel '
+        f'{ms:.3f} ms, twin {plain:.3f} ms, f32 B2 {b2_ms:.3f} ms; {n_rows} distinct '
+        f'{2 * t16.shape[1]}-byte rows; bound {b}')
+    check(same and same_b2, 'K4 NaN masks differ from its twin or from B2')
+    check(rel <= K_TOL, f'K4 max-rel {rel} > {K_TOL}')
+    check(err_b2 <= I16_TOL, f'K4 vs f32 B2 max-abs {err_b2} > {I16_TOL} m')
+    out['brick_integrate_i16'] = dict(max_abs_err=err, ms=ms, plain_ms=plain, **b,
+                                      library_ms=None, max_abs_vs_f32_b2=err_b2,
+                                      f32_b2_ms=b2_ms,
+                                      variant_ms=timed[(7, 3, 3, 6), 'prodi16'],
+                                      prodpallas_ms=timed[(7, 3, 3, 6), 'prodpallas'])
+    return launches, out
+
+
+def large_scene(torch, grid, y_span, x_span, y0_span, x0_span, on_device_cubes):
+    """bench.py's midcube/bigcube scene: cubes, 1M slant rays (float64 on the
+    device, then float32), the level chain and the plan inputs."""
+    from raider_tpu_torch.scripts.kernel_profile import build_rays
+
+    rng = np.random.default_rng(SEED)
+    nz, ny, nx = grid
+    zs = -500.0 + 26500.0 * np.linspace(0.0, 1.0, nz) ** 1.4
+    if on_device_cubes:
+        gen = torch.Generator(device=DEVICE)
+        gen.manual_seed(SEED)
+        wet = 0.1 + 99.9 * torch.rand(grid, generator=gen, device=DEVICE)
+        hydro = 50.0 + 250.0 * torch.rand(grid, generator=gen, device=DEVICE)
+    else:
+        wet = torch.as_tensor(rng.uniform(0.1, 100.0, grid).astype(np.float32), device=DEVICE)
+        hydro = torch.as_tensor(rng.uniform(50.0, 300.0, grid).astype(np.float32), device=DEVICE)
+    n = LARGE_RAYS
+    sc = dict(zen=rng.uniform(np.deg2rad(25.0), np.deg2rad(45.0), n),
+              azi=rng.uniform(0.0, 2.0 * np.pi, n), y0=rng.uniform(*y0_span, n),
+              x0=rng.uniform(*x0_span, n), dzv=np.diff(zs), zs=zs, deg_per_m=1.0 / 111000.0)
+    rays = build_rays(sc, DEVICE)
+    return dict(wet=wet, hydro=hydro, zs=zs, ys=np.linspace(*y_span, ny),
+                xs=np.linspace(*x_span, nx), rays=rays,
+                plm=(sc['dzv'] * float((1.0 / np.cos(sc['zen'])).max())).astype(np.float32),
+                hstep=sc['dzv'] * float(np.tan(sc['zen']).max()) * sc['deg_per_m'])
+
+
+def limits_line(torch) -> str:
+    """What each table byte limit of the ladder admits (cells, at the
+    (7,3,3,6) brick spec), and what the same share of this card's memory
+    would admit; the limits were sized for a 16 GiB TPU v5e."""
+    from raider_tpu_torch.delay import raytrace as rt
+
+    card_bytes = torch.cuda.get_device_properties(0).total_memory
+    brick = rt._padded_row_width(7 * 3 * 3 * 2)
+    limits = (('brick f32', rt._BRICK_SPECS[-1][4], brick * 4),
+              ('brick_i16', rt._BRICK_SPECS[-1][4], brick * 2),
+              ('pack16 f32', rt._PACK16_BYTE_LIMIT, 16 * 4),
+              ('pack16_i16', rt._PACK16_I16_BYTE_LIMIT, 16 * 2))
+    mid, big = int(np.prod(MID_GRID)), int(np.prod(BIG_GRID))
+    parts = [f'{name}: limit {lim / 2**30:.0f} GiB admits {lim // row:,} cells, the same share '
+             f'of {card_bytes / 1e9:.1f} GB {int(lim / 2**34 * card_bytes) // row:,}; the '
+             f'midcube table {mid * row / 1e9:.2f} GB, the bigcube one {big * row / 1e9:.2f} GB'
+             for name, lim, row in limits]
+    return (f'table byte limits (sized for a 16 GiB TPU v5e; midcube {mid:,} cells, bigcube '
+            f'{big:,}): ' + '; '.join(parts))
+
+
+def phase_large(torch, kernels):
+    """Phase 7: the midcube and bigcube through ``integrate_rays`` in the
+    auto mode (the engine's per-slice call), each against an exact mode."""
+    from raider_tpu_torch.delay.raytrace import integrate_rays, pack_cubes, pack_mode_for
+    from raider_tpu_torch.scripts import cuda_ms
+
+    res, launches = {}, None
+    # (name, grid, y axis, x axis, y0 span, x0 span, cubes made on the device,
+    #  the JAX ladder's answer for the grid, the exact mode it is held to)
+    cells = (('midcube', MID_GRID, (28.0, 42.0), (-127.0, -113.0), (30.0, 40.0),
+              (-125.0, -115.0), False, 'brick_i16', 'pack16'),
+             ('bigcube', BIG_GRID, (21.0, 53.0), (-134.0, -60.0), (25.0, 49.0),
+              (-124.0, -70.0), True, 'pack16_i16', 'pack4'))
+    for name, grid, ysp, xsp, y0s, x0s, on_dev, jax_mode, exact in cells:
+        sc = large_scene(torch, grid, ysp, xsp, y0s, x0s, on_dev)
+        auto = pack_mode_for(grid, np.float32, grouped=True)
+        check(auto == jax_mode, f'{name}: pack_mode_for gives {auto}, the JAX ladder {jax_mode}')
+
+        def pack(mode, sc=sc):
+            return pack_cubes(sc['wet'], sc['hydro'], mode=mode)[0]
+
+        def integrate(table, mode, sc=sc):
+            return integrate_rays(sc['wet'], sc['hydro'], sc['ys'], sc['xs'], sc['zs'],
+                                  *sc['rays'], sc['plm'], packed2d=table, mode=mode,
+                                  heights=sc['zs'].copy(), hstep_max=sc['hstep'])
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        wq, hq = integrate(pack(auto), auto)
+        torch.cuda.synchronize()
+        got = dict(kernels.LAUNCHES)
+        peak_q = torch.cuda.max_memory_allocated() / 1e9
+        if name == 'midcube':
+            launches = got
+            check(got['brick_integrate_i16'] >= 1, f'K4 was not launched on the midcube: {got}')
+        torch.cuda.reset_peak_memory_stats()
+        we, he = integrate(pack(exact), exact)
+        torch.cuda.synchronize()
+        peak_e = torch.cuda.max_memory_allocated() / 1e9
+        both = torch.isfinite(wq) & torch.isfinite(we) & torch.isfinite(hq) & torch.isfinite(he)
+        err = float(max((wq - we)[both].abs().max(), (hq - he)[both].abs().max()))
+        fin = float((torch.isfinite(wq) & torch.isfinite(hq)).float().mean())
+        only_q = int((torch.isnan(wq) & ~torch.isnan(we)).sum())
+        only_e = int((torch.isnan(we) & ~torch.isnan(wq)).sum())
+        times = {}
+        for mode in (auto, exact):
+            table = pack(mode)
+            times[mode] = dict(total_ms=cuda_ms(lambda m=mode: integrate(pack(m), m)),
+                               pack_ms=cuda_ms(lambda m=mode: pack(m)),
+                               integrate_ms=cuda_ms(lambda m=mode, t=table: integrate(t, m)))
+            del table
+        say(f'{name} {grid}, {LARGE_RAYS} rays: auto mode {auto} (the JAX ladder: {jax_mode}) '
+            f'{times[auto]}, peak {peak_q:.2f} GB; {exact} {times[exact]}, peak {peak_e:.2f} GB '
+            f'(ms, pack + integrate); max |diff| {err:.3e} m, finite {fin:.6f}, NaN only in '
+            f'{auto} {only_q}, only in {exact} {only_e}; launches {got}')
+        check(err <= I16_TOL, f'{name}: {auto} vs {exact} max |diff| {err} m > {I16_TOL} m')
+        check(fin >= 0.99, f'{name}: finite share {fin} < 0.99')
+        res[name] = dict(mode=auto, exact_mode=exact, times_ms=times, peak_gb=peak_q,
+                         exact_peak_gb=peak_e, max_abs=err, finite=fin)
+        del sc, wq, hq, we, he, both
+        torch.cuda.empty_cache()
+    say(limits_line(torch))
+    return launches, res
+
+
 def main() -> int:
     import torch
 
@@ -513,6 +756,9 @@ def main() -> int:
     launches = phase_main_path(torch, kernels)
     launches_w, b3 = phase_window(torch, kernels)
     launches_p, s4, s5 = phase_probes(torch, kernels)
+    launches_k, prof = phase_profile(torch, kernels)
+    launches_l, large = phase_large(torch, kernels)
+    say(json.dumps({'large_cubes': large}))
 
     record = {'kernels': [
         {'name': 'ztd_totals', 'route': 'cuda', 'source': 'raider_tpu_torch/csrc/ztd_totals.cu',
@@ -531,6 +777,22 @@ def main() -> int:
         {'name': 'probe_bitcast_i16_bf16', 'route': 'cuda',
          'source': 'raider_tpu_torch/csrc/probe_f16.cu', 'replaces': 'scripts/probe_f16.py:88',
          'launches': launches_p['probe_bitcast_i16_bf16'], **s5},
+        {'name': 'brick_contract', 'route': 'cuda',
+         'source': 'raider_tpu_torch/csrc/brick_contract.cu',
+         'replaces': 'scripts/kernel_profile.py:179', 'launches': launches_k['brick_contract'],
+         **prof['brick_contract']},
+        {'name': 'brick_group_rows', 'route': 'cuda', 'source': 'raider_tpu_torch/csrc/brick_group.cu',
+         'replaces': 'scripts/kernel_profile.py:304', 'launches': launches_k['brick_group_rows'],
+         **prof['brick_group_rows']},
+        {'name': 'brick_group_merged', 'route': 'cuda',
+         'source': 'raider_tpu_torch/csrc/brick_group.cu',
+         'replaces': 'scripts/kernel_profile.py:475',
+         'launches': launches_k['brick_group_merged'], **prof['brick_group_merged']},
+        {'name': 'brick_integrate_i16', 'route': 'cuda',
+         'source': 'raider_tpu_torch/csrc/brick_integrate.cu',
+         'replaces': 'raider_tpu/delay/raytrace.py:704',
+         'launches': launches_k['brick_integrate_i16'],
+         'launches_midcube': launches_l['brick_integrate_i16'], **prof['brick_integrate_i16']},
     ]}
     say(json.dumps(record))
     say(json.dumps({'ok': True, 'device': {'platform': 'gpu',

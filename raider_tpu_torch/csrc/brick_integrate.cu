@@ -1,8 +1,9 @@
-// Brick integrate along raytraced slant paths (kernel B2).
+// Brick integrate along raytraced slant paths: kernel B2 (float32 table)
+// and kernel K4 (its int16 branch, brick_i16).
 //
 // Replaces: raider_tpu/delay/raytrace.py, _static_brick_pallas_fn ->
-// group_kernel / group_call / run (Pallas, TPU), and its XLA form
-// _integrate_bricks (the plan as operands).
+// group_kernel / group_call / run (Pallas, TPU), with and without has_deq,
+// and its XLA form _integrate_bricks (the plan as operands, deq).
 //
 // Per ray (one thread) and per brick group of the grouped sampling plan:
 //   1. every sample's position: lerp between the level boundaries, the chord
@@ -43,7 +44,7 @@
 
 namespace {
 
-constexpr int kMaxG = 8;   // samples per group the kernel holds in registers
+constexpr int kI16Nan = -32768;  // int16 sentinel of a non-finite cell
 constexpr int kPlanI = 5;  // lvl, wa_lvl, wb_lvl, dzoff, pad
 constexpr int kPlanF = 5;  // frac, wa, wb, zlo, zinv
 
@@ -53,8 +54,10 @@ struct Axis {
   int uniform, n;
 };
 
+template <typename Row>
 struct Params {
-  const float* table;
+  const Row* table;
+  const float* deq;  // [sw, ow, sh, oh] for an int16 table, else null
   const float* bnd_y;
   const float* bnd_x;
   const float* bnd_z;
@@ -97,7 +100,16 @@ __device__ __forceinline__ float lerp_rn(float lo, float hi, float f) {
   return __fadd_rn(lo, __fmul_rn(f, __fsub_rn(hi, lo)));
 }
 
-__global__ void brick_integrate_kernel(const Params prm) {
+// one corner of the row as float: a float row as it is, an int16 row decoded
+__device__ __forceinline__ float corner(const float* p, float, float) { return __ldg(p); }
+
+__device__ __forceinline__ float corner(const short* p, float scale, float offset) {
+  const short raw = __ldg(p);
+  return raw == kI16Nan ? NAN : __fadd_rn(__fmul_rn(static_cast<float>(raw), scale), offset);
+}
+
+template <typename Row, int kMaxG>
+__global__ void brick_integrate_kernel(const Params<Row> prm) {
   extern __shared__ int smem[];
   const int n_slots = prm.n_groups * prm.G;
   int* s_pi = smem;
@@ -113,6 +125,13 @@ __global__ void brick_integrate_kernel(const Params prm) {
   const size_t N = static_cast<size_t>(prm.n);
   const float re = prm.re[r];
   const int width = prm.planes * prm.wy * prm.wx * 2;
+  float sw = 0.0f, ow = 0.0f, sh = 0.0f, oh = 0.0f;
+  if (prm.deq != nullptr) {
+    sw = prm.deq[0];
+    ow = prm.deq[1];
+    sh = prm.deq[2];
+    oh = prm.deq[3];
+  }
   float acc_w = 0.0f, acc_h = 0.0f;
 
   for (int g = 0; g < prm.n_groups; ++g) {
@@ -158,7 +177,7 @@ __global__ void brick_integrate_kernel(const Params prm) {
 
     const long long row_idx =
         (static_cast<long long>(s_anchor[g]) * prm.ny + ay) * prm.nx + ax;
-    const float* row = prm.table + static_cast<size_t>(row_idx) * static_cast<size_t>(width);
+    const Row* row = prm.table + static_cast<size_t>(row_idx) * static_cast<size_t>(width);
 
 #pragma unroll
     for (int s = 0; s < kMaxG; ++s) {
@@ -180,10 +199,12 @@ __global__ void brick_integrate_kernel(const Params prm) {
           for (int k = 0; k < prm.wy; ++k) {
             const float hk =
                 fmaxf(__fsub_rn(1.0f, fabsf(__fsub_rn(gy, static_cast<float>(k)))), 0.0f);
-            const float* c0 = row + ((dzo * prm.wy + k) * prm.wx + l) * 2;
-            const float* c1 = c0 + prm.wy * prm.wx * 2;
-            const float vz_w = __fadd_rn(__fmul_rn(__ldg(c0), w0), __fmul_rn(__ldg(c1), w1));
-            const float vz_h = __fadd_rn(__fmul_rn(__ldg(c0 + 1), w0), __fmul_rn(__ldg(c1 + 1), w1));
+            const Row* c0 = row + ((dzo * prm.wy + k) * prm.wx + l) * 2;
+            const Row* c1 = c0 + prm.wy * prm.wx * 2;
+            const float vz_w = __fadd_rn(__fmul_rn(corner(c0, sw, ow), w0),
+                                         __fmul_rn(corner(c1, sw, ow), w1));
+            const float vz_h = __fadd_rn(__fmul_rn(corner(c0 + 1, sh, oh), w0),
+                                         __fmul_rn(corner(c1 + 1, sh, oh), w1));
             vy_w = __fadd_rn(vy_w, __fmul_rn(vz_w, hk));
             vy_h = __fadd_rn(vy_h, __fmul_rn(vz_h, hk));
           }
@@ -201,21 +222,38 @@ __global__ void brick_integrate_kernel(const Params prm) {
   prm.out[N + r] = acc_h;
 }
 
-}  // namespace
+template <typename Row, int kMaxG>
+int launch_instance(const Params<Row>& prm, void* stream) {
+  const size_t smem = static_cast<size_t>(prm.n_groups) * prm.G * (kPlanI * sizeof(int) + kPlanF * sizeof(float))
+                      + static_cast<size_t>(prm.n_groups) * sizeof(int);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        brick_integrate_kernel<Row, kMaxG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const int threads = 128;
+  const long long blocks = (prm.n + threads - 1) / threads;
+  brick_integrate_kernel<Row, kMaxG><<<static_cast<unsigned>(blocks), threads, smem,
+                                       static_cast<cudaStream_t>(stream)>>>(prm);
+  return static_cast<int>(cudaGetLastError());
+}
 
-extern "C" int brick_integrate_launch(
-    const float* table, const float* bnd_y, const float* bnd_x, const float* bnd_z,
-    const float* d2, const float* ray_len, const float* re, const int* plan_i,
-    const float* plan_f, const int* anchor, const float* y_axis, const float* x_axis,
-    float* out, long long n, int n_groups, int G, int planes, int wy, int wx, int ny,
-    int nx, float y_lo, float y_hi, float y_step, int y_uniform, float x_lo, float x_hi,
-    float x_step, int x_uniform, float z_lo, float z_hi, int z_clip, void* stream) {
-  if (G < 1 || G > kMaxG || n_groups < 1 || ny < 2 || nx < 2) {
+template <typename Row>
+int launch(const Row* table, const float* deq, const float* bnd_y, const float* bnd_x,
+           const float* bnd_z, const float* d2, const float* ray_len, const float* re,
+           const int* plan_i, const float* plan_f, const int* anchor, const float* y_axis,
+           const float* x_axis, float* out, long long n, int n_groups, int G, int planes,
+           int wy, int wx, int ny, int nx, float y_lo, float y_hi, float y_step, int y_uniform,
+           float x_lo, float x_hi, float x_step, int x_uniform, float z_lo, float z_hi,
+           int z_clip, void* stream) {
+  if (G < 1 || G > 24 || n_groups < 1 || ny < 2 || nx < 2) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n == 0) return 0;
-  Params prm;
+  Params<Row> prm;
   prm.table = table;
+  prm.deq = deq;
   prm.bnd_y = bnd_y;
   prm.bnd_x = bnd_x;
   prm.bnd_z = bnd_z;
@@ -239,18 +277,35 @@ extern "C" int brick_integrate_launch(
   prm.z_lo = z_lo;
   prm.z_hi = z_hi;
   prm.z_clip = z_clip;
+  return G <= 8 ? launch_instance<Row, 8>(prm, stream) : launch_instance<Row, 24>(prm, stream);
+}
 
-  const size_t smem = static_cast<size_t>(n_groups) * G * (kPlanI * sizeof(int) + kPlanF * sizeof(float))
-                      + static_cast<size_t>(n_groups) * sizeof(int);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        brick_integrate_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const int threads = 128;
-  const long long blocks = (n + threads - 1) / threads;
-  brick_integrate_kernel<<<static_cast<unsigned>(blocks), threads, smem,
-                           static_cast<cudaStream_t>(stream)>>>(prm);
-  return static_cast<int>(cudaGetLastError());
+}  // namespace
+
+extern "C" int brick_integrate_launch(
+    const float* table, const float* bnd_y, const float* bnd_x, const float* bnd_z,
+    const float* d2, const float* ray_len, const float* re, const int* plan_i,
+    const float* plan_f, const int* anchor, const float* y_axis, const float* x_axis,
+    float* out, long long n, int n_groups, int G, int planes, int wy, int wx, int ny,
+    int nx, float y_lo, float y_hi, float y_step, int y_uniform, float x_lo, float x_hi,
+    float x_step, int x_uniform, float z_lo, float z_hi, int z_clip, void* stream) {
+  return launch<float>(table, nullptr, bnd_y, bnd_x, bnd_z, d2, ray_len, re, plan_i, plan_f,
+                       anchor, y_axis, x_axis, out, n, n_groups, G, planes, wy, wx, ny, nx,
+                       y_lo, y_hi, y_step, y_uniform, x_lo, x_hi, x_step, x_uniform, z_lo,
+                       z_hi, z_clip, stream);
+}
+
+extern "C" int brick_integrate_i16_launch(
+    const short* table, const float* bnd_y, const float* bnd_x, const float* bnd_z,
+    const float* d2, const float* ray_len, const float* re, const int* plan_i,
+    const float* plan_f, const int* anchor, const float* y_axis, const float* x_axis,
+    float* out, const float* deq, long long n, int n_groups, int G, int planes, int wy,
+    int wx, int ny, int nx, float y_lo, float y_hi, float y_step, int y_uniform, float x_lo,
+    float x_hi, float x_step, int x_uniform, float z_lo, float z_hi, int z_clip,
+    void* stream) {
+  if (deq == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return launch<short>(table, deq, bnd_y, bnd_x, bnd_z, d2, ray_len, re, plan_i, plan_f,
+                       anchor, y_axis, x_axis, out, n, n_groups, G, planes, wy, wx, ny, nx,
+                       y_lo, y_hi, y_step, y_uniform, x_lo, x_hi, x_step, x_uniform, z_lo,
+                       z_hi, z_clip, stream);
 }

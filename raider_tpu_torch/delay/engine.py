@@ -11,7 +11,10 @@ zenith or raytraced lines of sight:
     geo2rdr look vectors, batched level intersections, boundary points in
     the model CRS shifted by the grid origin before the float32 entry, and
     a per-slice sampling plan from that slice's measured per-level maxima;
-    then kernel B2 (``delay.raytrace.integrate_rays``).
+    then ``delay.raytrace.integrate_rays`` on the table ``pack_cubes``
+    builds once per cube in the mode of the JAX package's ladder: kernel
+    B2 (f32 bricks), K4 (int16 bricks, the capacity band) or the plain-torch
+    pack16 / pack16_i16 / pack4 integrate for larger cubes.
 
 The JAX package's device-geometry session (cube-global static plan and
 deferred redo), its int16 result stream, fetch batching and sharding are
@@ -215,9 +218,11 @@ def _slice_geometry(wm: WeatherCube, lat, lon, ht: float, los, zref: float):
 def _build_cube_ray(wm: WeatherCube, xpts, ypts, zpts, los, pts_crs, zref,
                     compute_dtype=torch.float64,
                     max_segment_length: float = MAX_SEGMENT_LENGTH):
-    """Raytraced cube: float64 geometry and the brick integrate per output
-    height, on the weather cube's device. Returns host float64 (z, y, x)
-    arrays (wet, hydro)."""
+    """Raytraced cube: float64 geometry and the integrate per output height,
+    on the weather cube's device. The table is packed once in the mode
+    ``pack_mode_for`` picks for the cube; an int16 mode's ``(table, deq)``
+    pair rides into every slice's ``integrate_rays``. Returns host float64
+    (z, y, x) arrays (wet, hydro)."""
     compute_dtype = torch_dtype(compute_dtype)
     dev = wm.device
     cube_wet = wm.field('wet', compute_dtype)

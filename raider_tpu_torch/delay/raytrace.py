@@ -1,20 +1,33 @@
-"""Raytrace integration: grouped sampling plans, the brick table, kernel B2.
+"""Raytrace integration: sampling plans, the packed tables, kernels B2 and K4.
 
-Counterpart of ``raider_tpu/delay/raytrace.py`` for the f32 'brick' mode.
+Counterpart of ``raider_tpu/delay/raytrace.py``, every table mode:
 
   * Host plan builders (numpy, copied): :func:`_brick_spec_for`,
-    :func:`_dedup_point_walk`, :func:`build_group_plan`, :class:`GroupPlan`,
-    :func:`_pad_group_plan`. They define the quadrature: the reference's
-    nParts rule per level, deduplicated shared boundaries, greedy groups of
-    samples whose cells fit one brick row.
-  * :func:`pack_cubes`: the brick table, row (z, y, x) = [planes z][wy y]
-    [wx x][wet, hydro] corner values, built on the device in z-chunks.
+    :func:`_dedup_point_walk`, :func:`build_sampling_plan`,
+    :func:`build_group_plan`, :class:`GroupPlan`, :func:`_pad_group_plan`,
+    :func:`_pad_point_plan`, :func:`static_plan_from`. They define the
+    quadrature: the reference's nParts rule per level, deduplicated shared
+    boundaries, greedy groups of samples whose cells fit one brick row.
+  * :func:`pack_mode_for`: the JAX package's ladder by table bytes (its
+    byte limits, so both packages pick the same mode for a cube):
+    'brick', 'brick_i16' (the capacity band), 'pack16', 'pack16_i16',
+    'pack4'. f64 cubes never quantize.
+  * :func:`pack_cubes`: the table on the cubes' device. Brick rows (z, y, x)
+    = [planes z][wy y][wx x][wet, hydro] corner values; pack16 rows the 8
+    cell corners x {wet, hydro}; pack4 rows {wet, hydro} x {x, x+1}. The
+    int16 modes quantize each field first (:func:`_quantize_i16`) and
+    return a ``(table, deq)`` pair, deq = [sw, ow, sh, oh].
   * :func:`integrate_bricks`: kernel B2 (``csrc/brick_integrate.cu``) for
-    CUDA tensors, :func:`integrate_bricks_ref` (a port of the JAX
-    ``_integrate_bricks``, the plan as tensors) for CPU tensors.
-  * :func:`integrate_rays`: one output-height slice, mode 'brick' only. The
-    pack16 / pack16_i16 / pack4 / brick_i16 modes of the JAX package are
-    not ported yet (ROADMAP A3).
+    a float32 brick table on CUDA, kernel K4 (its int16 branch, decoding
+    each corner it reads) for an int16 one; :func:`integrate_bricks_ref`
+    (a port of the JAX ``_integrate_bricks``, the plan as tensors) for CPU
+    tensors.
+  * :func:`static_brick_ref`: plain torch port of the XLA
+    ``_static_brick_fn`` (the static plan baked in, one U contraction per
+    group), the reference of ``scripts/kernel_profile.py``.
+  * :func:`_integrate_packed`: the pack16 / pack16_i16 / pack4 integrate,
+    plain torch (XLA in the JAX package, no Pallas kernel).
+  * :func:`integrate_rays`: one output-height slice, any mode.
 
 Sample heights are the lerp between exact level-boundary points plus the
 analytic chord sagitta h(f) = lerp(h0, h1, f) - f (1-f) D^2 / (2 (Re + h)).
@@ -31,14 +44,23 @@ from raider_tpu_torch.ops.interp import _locate, axis_uniform_step
 _BRICK_SPECS = (
     (7, 3, 3, 6, 6 * 1024**3),
 )
-_NOT_PORTED = 'is not ported to raider_tpu_torch yet (ROADMAP A3)'
+
+# the JAX package's table byte limits (sized for a 16 GB TPU v5e; kept so
+# that both packages pick the same mode for the same cube)
+_PACK16_BYTE_LIMIT = 3 * 1024**3
+_PACK16_I16_BYTE_LIMIT = 6 * 1024**3
+_I16_NAN = -32768     # int16 sentinel of a non-finite cell
+
+_CORNERS = [(0, 0, 0), (0, 0, 1), (0, 1, 0), (0, 1, 1),
+            (1, 0, 0), (1, 0, 1), (1, 1, 0), (1, 1, 1)]
 
 # Plan lengths are padded to a multiple of this (as in the JAX package);
 # padded groups integrate to exactly zero and the kernel skips them.
 _PLAN_BUCKET = 4
 
-# most samples per group the CUDA kernel holds in registers (kMaxG)
-_KERNEL_MAX_G = 8
+# most samples per group the CUDA kernels hold in registers (instances of
+# kMaxG: 8 and 24, chosen at launch)
+_KERNEL_MAX_G = 24
 
 
 def _padded_row_width(width: int) -> int:
@@ -85,6 +107,36 @@ def _dedup_point_walk(n_parts, gap_bounds=None):
             yield (zz, 1.0, zz, 0.5 * inv, zz, 0.0, gap)
 
 
+def build_sampling_plan(ray_lengths_max, max_segment_length: float = MAX_SEGMENT_LENGTH):
+    """The deduplicated point plan of the packed (non-brick) modes.
+
+    Returns (coord_lvl, fracs, wa_lvl, wa, wb_lvl, wb), all (P,): point p is
+    at fraction fracs[p] along level coord_lvl[p]'s segment, with weight
+    1e-6 * (wa[p] * ray_len[wa_lvl[p]] + wb[p] * ray_len[wb_lvl[p]]).
+    """
+    # clamp to >= 2: a zero-length level gives ceil(0) + 1 = 1
+    n_parts = np.maximum(
+        np.ceil(np.asarray(ray_lengths_max) / max_segment_length).astype(int) + 1, 2)
+    coord_lvl, fracs, wa_lvl, wa, wb_lvl, wb, _ = map(list, zip(*_dedup_point_walk(n_parts)))
+    return (np.asarray(coord_lvl, dtype=np.int32), np.asarray(fracs),
+            np.asarray(wa_lvl, dtype=np.int32), np.asarray(wa),
+            np.asarray(wb_lvl, dtype=np.int32), np.asarray(wb))
+
+
+def _pad_point_plan(plan, bucket: int):
+    """Zero-weight padding of the point plan to a multiple of ``bucket``."""
+    coord_lvl, fracs, wa_lvl, wa, wb_lvl, wb = plan
+    n = coord_lvl.size
+    target = int(np.ceil(n / bucket)) * bucket
+    if target == n:
+        return plan
+    z32 = np.zeros(target - n, np.int32)
+    zf = np.zeros(target - n)
+    return (np.concatenate([coord_lvl, z32]), np.concatenate([fracs, zf]),
+            np.concatenate([wa_lvl, z32]), np.concatenate([wa, zf]),
+            np.concatenate([wb_lvl, z32]), np.concatenate([wb, zf]))
+
+
 class GroupPlan:
     """Grouped sampling plan for the brick integrate.
 
@@ -97,6 +149,10 @@ class GroupPlan:
 
     def __init__(self, **kw):
         self.__dict__.update(kw)
+
+    @property
+    def n_points(self):
+        return int((~self.pad).sum())
 
 
 def build_group_plan(ray_lengths_max, heights, hstep_max, ys, xs, zs,
@@ -204,12 +260,27 @@ def _pad_group_plan(plan: GroupPlan, bucket: int) -> GroupPlan:
 
 
 def pack_mode_for(cube_shape, dtype, grouped: bool = False) -> str:
-    """The table layout: 'brick' whenever the brick spec admits the cube."""
-    if grouped and _brick_spec_for(cube_shape, dtype) is not None:
-        return 'brick'
-    raise NotImplementedError(
-        f'cube {tuple(cube_shape)} {np.dtype(dtype)} needs a pack16/pack16_i16/pack4/'
-        f'brick_i16 table, which {_NOT_PORTED}')
+    """The table layout by table bytes, the JAX package's ladder.
+
+    ``grouped`` (the caller has the heights chain and motion bounds) prefers
+    the brick layout: 'brick' where the f32 (or f64) brick table fits,
+    'brick_i16' in the capacity band where only the half-size int16 one
+    does. Otherwise 'pack16' under ``_PACK16_BYTE_LIMIT``, 'pack16_i16'
+    under ``_PACK16_I16_BYTE_LIMIT``, else 'pack4'. f64 cubes are the exact
+    path and never quantize. A mode is forced through ``pack_cubes(mode=)``.
+    """
+    f32 = np.dtype(dtype) == np.float32
+    if grouped:
+        if _brick_spec_for(cube_shape, dtype) is not None:
+            return 'brick'
+        if f32 and _brick_spec_for(cube_shape, np.int16) is not None:
+            return 'brick_i16'
+    n_cells = int(np.prod(cube_shape))
+    if n_cells * 16 * np.dtype(dtype).itemsize <= _PACK16_BYTE_LIMIT:
+        return 'pack16'
+    if f32 and n_cells * 16 * 2 <= _PACK16_I16_BYTE_LIMIT:
+        return 'pack16_i16'
+    return 'pack4'
 
 
 def _pack_bricks(cube_wet, cube_hydro, planes: int, wy: int = 3, wx: int = 3):
@@ -237,14 +308,93 @@ def _pack_bricks(cube_wet, cube_hydro, planes: int, wy: int = 3, wx: int = 3):
     return table
 
 
+def _pack_cubes(cube_wet, cube_hydro, mode: str):
+    """pack16 rows [w(c0), h(c0), w(c1), h(c1), ...] over the 8 corners of
+    ``_CORNERS`` of the cell anchored at each node; pack4 rows [w, h,
+    w(x+1), h(x+1)]. Shifts past the edge are zero, written into the table
+    through a strided view (no stacked copies)."""
+    nz, ny, nx = cube_wet.shape
+    shifts = _CORNERS if mode == 'pack16' else [(0, 0, 0), (0, 0, 1)]
+    table = torch.zeros((nz * ny * nx, 2 * len(shifts)), dtype=cube_wet.dtype,
+                        device=cube_wet.device)
+    view = table.view(nz, ny, nx, len(shifts), 2)
+    for c, (dz, dy, dx) in enumerate(shifts):
+        for f, src in enumerate((cube_wet, cube_hydro)):
+            view[:nz - dz, :ny - dy, :nx - dx, c, f] = src[dz:, dy:, dx:]
+    return table
+
+
+def _quantize_i16(cube):
+    """Affine int16 quantization of one field: (raw int16 cube, scale f32,
+    offset f32) with v ~ raw * scale + offset; non-finite cells take the
+    ``_I16_NAN`` sentinel.
+
+    As the JAX function compiles (read from the CPU backend's optimized
+    HLO): the span's ``/ 65534.0`` is a multiply by float32(1 / 65534), the
+    per-cell ``(cube - off) / scale`` a true division; ``torch.round``
+    rounds half to even like ``jnp.round``.
+    """
+    dev = cube.device
+    finite = torch.isfinite(cube)
+    inf = torch.tensor(float('inf'), dtype=cube.dtype, device=dev)
+    vmin = torch.where(finite, cube, inf).amin()
+    vmax = torch.where(finite, cube, -inf).amax()
+    nan = torch.tensor(float('nan'), dtype=cube.dtype, device=dev)
+    any_finite = finite.any()
+    vmin = torch.where(any_finite, vmin, nan)
+    vmax = torch.where(any_finite, vmax, nan)
+    inv_span = torch.tensor(np.float32(1.0 / 65534.0), dtype=cube.dtype, device=dev)
+    scale = (vmax - vmin).clamp_min(1e-12) * inv_span
+    off = (vmin + vmax) * 0.5
+    raw = torch.round((cube - off) / scale).clamp(-32767, 32767)
+    raw = torch.where(finite, raw, torch.tensor(float(_I16_NAN), dtype=cube.dtype, device=dev))
+    return raw.to(torch.int16), scale.to(torch.float32), off.to(torch.float32)
+
+
+def _i16_column_deq(n_cols: int, deq, dtype):
+    """Per-column (scale, offset) vectors of a packed int16 row: columns
+    alternate {wet, hydro}, deq = [sw, ow, sh, oh]."""
+    wet = torch.arange(n_cols, device=deq.device) % 2 == 0
+    sc = torch.where(wet, deq[0], deq[2]).to(dtype)
+    of = torch.where(wet, deq[1], deq[3]).to(dtype)
+    return sc, of
+
+
+def _deq_brick(brick, deq, cdt):
+    """int16 brick (..., 2 fields last) -> ``cdt``: per-field affine, the
+    sentinel to NaN (a multiply, then an add)."""
+    sc2 = torch.stack([deq[0], deq[2]]).to(cdt)
+    of2 = torch.stack([deq[1], deq[3]]).to(cdt)
+    nan = torch.tensor(float('nan'), dtype=cdt, device=brick.device)
+    return torch.where(brick == _I16_NAN, nan, brick.to(cdt) * sc2 + of2)
+
+
+def _quantized_pair(cube_wet, cube_hydro):
+    """Both fields quantized: (qw, qh, deq) with deq = [sw, ow, sh, oh]."""
+    qw, sw, ow = _quantize_i16(cube_wet)
+    qh, sh, oh = _quantize_i16(cube_hydro)
+    return qw, qh, torch.stack([sw, ow, sh, oh])
+
+
 def pack_cubes(cube_wet, cube_hydro, mode=None, grouped: bool = False):
-    """Build the packed table on the cubes' device; returns (table, mode)."""
+    """Build the packed table on the cubes' device; returns (table, mode),
+    where the table of an int16 mode is the pair (int16 table, deq)."""
     if mode is None:
         mode = pack_mode_for(cube_wet.shape, _np_dtype(cube_wet), grouped=grouped)
-    if mode != 'brick':
-        raise NotImplementedError(f'mode {mode!r} {_NOT_PORTED}')
-    planes, wy, wx, _ = _brick_spec_for(cube_wet.shape, _np_dtype(cube_wet)) or _BRICK_SPECS[-1][:4]
-    return _pack_bricks(cube_wet, cube_hydro, planes, wy, wx), mode
+    if mode in ('brick', 'brick_i16'):
+        # the spec follows the TABLE dtype: int16 for the quantized mode
+        tdt = np.int16 if mode == 'brick_i16' else _np_dtype(cube_wet)
+        planes, wy, wx, _ = _brick_spec_for(cube_wet.shape, tdt) or _BRICK_SPECS[-1][:4]
+        if mode == 'brick':
+            return _pack_bricks(cube_wet, cube_hydro, planes, wy, wx), mode
+        qw, qh, deq = _quantized_pair(cube_wet, cube_hydro)
+        return (_pack_bricks(qw, qh, planes, wy, wx), deq), mode
+    if mode == 'pack16_i16':
+        qw, qh, deq = _quantized_pair(cube_wet, cube_hydro)
+        return (_pack_cubes(qw, qh, 'pack16'), deq), mode
+    if mode in ('pack16', 'pack4'):
+        return _pack_cubes(cube_wet, cube_hydro, mode), mode
+    raise ValueError(f'unknown table mode {mode!r}')
 
 
 def _np_dtype(t: torch.Tensor):
@@ -267,17 +417,21 @@ def _row(a, i):
 
 
 def integrate_bricks_ref(table2d, bnd_y, bnd_x, bnd_z, d2, ray_len, re_local,
-                         plan: GroupPlan, ys, xs, zs, z_clip: bool = True):
-    """Plain-torch twin of kernel B2: a port of the JAX ``_integrate_bricks``.
+                         plan: GroupPlan, ys, xs, zs, z_clip: bool = True, deq=None):
+    """Plain-torch twin of kernels B2 and K4: a port of the JAX
+    ``_integrate_bricks``.
 
     The plan enters as tensors, one group at a time: each group gathers one
     brick row per ray and mixes it per sample with a one-hot over the z
-    planes and hat weights in y and x. Returns (wet (N,), hydro (N,)).
-    NaN anywhere in a group's brick row poisons the ray here (the kernel,
-    like the TPU kernel, reads only the two planes a sample uses); the
+    planes and hat weights in y and x. An int16 table (brick_i16) is
+    decoded after the gather with ``deq`` = [sw, ow, sh, oh], whose dtype is
+    the compute dtype. Returns (wet (N,), hydro (N,)).
+    NaN anywhere in a group's brick row poisons the ray here (the kernels,
+    like the TPU kernel, read only the two planes a sample uses); the
     processed weather cubes on the delay path hold no NaN.
     """
-    cdt, dev = table2d.dtype, table2d.device
+    cdt = deq.dtype if deq is not None else table2d.dtype
+    dev = table2d.device
     ys_np, xs_np, zs_np = (np.asarray(a) for a in (ys, xs, zs))
     ny, nx = ys_np.size, xs_np.size
     z_lo, z_hi = float(zs_np[0]), float(zs_np[-1])
@@ -318,6 +472,8 @@ def integrate_bricks_ref(table2d, bnd_y, bnd_x, bnd_z, d2, ray_len, re_local,
         ay = torch.stack(iy_all).amin(0)
         ax = torch.stack(ix_all).amin(0)
         brick = table2d[(P['anchor'][g] * ny + ay) * nx + ax].reshape(n, planes, wy, wx, 2)
+        if deq is not None:
+            brick = _deq_brick(brick, deq, cdt)
         for s in range(G):
             fy, fx, fz, ok, rl = samples[s]
             dy = iy_all[s] - ay
@@ -341,13 +497,16 @@ def integrate_bricks_ref(table2d, bnd_y, bnd_x, bnd_z, d2, ray_len, re_local,
 
 
 def integrate_bricks(table2d, bnd_y, bnd_x, bnd_z, d2, ray_len, re_local,
-                     plan: GroupPlan, ys, xs, zs, z_clip: bool = True):
+                     plan: GroupPlan, ys, xs, zs, z_clip: bool = True, deq=None):
     """Brick integrate for one slice: (wet (N,), hydro (N,)).
 
-    table2d (nz*ny*nx, planes*wy*wx*2); bnd_y/x/z (L+1, N) level-boundary
-    points in the model CRS; d2 and ray_len (L, N); re_local (N,); the axes
-    are host arrays. CPU tensors run :func:`integrate_bricks_ref`; CUDA
-    tensors launch kernel B2, which takes contiguous float32 operands.
+    table2d (nz*ny*nx, planes*wy*wx*2), float, or int16 with ``deq`` =
+    [sw, ow, sh, oh] (its dtype is the compute dtype); bnd_y/x/z (L+1, N)
+    level-boundary points in the model CRS; d2 and ray_len (L, N); re_local
+    (N,); the axes are host arrays. CPU tensors run
+    :func:`integrate_bricks_ref`; CUDA tensors launch kernel B2 (a float32
+    table) or K4 (an int16 table), which take contiguous float32 operands
+    and plans of at most ``_KERNEL_MAX_G`` samples a group.
     """
     ys_np, xs_np, zs_np = (np.asarray(a, dtype=np.float64) for a in (ys, xs, zs))
     ny, nx, nz = ys_np.size, xs_np.size, zs_np.size
@@ -356,23 +515,30 @@ def integrate_bricks(table2d, bnd_y, bnd_x, bnd_z, d2, ray_len, re_local,
     width = plan.planes * plan.wy * plan.wx * 2
     ops = (bnd_y, bnd_x, bnd_z, d2, ray_len, re_local)
     shapes = ((L1, n), (L1, n), (L1, n), (L, n), (L, n), (n,))
+    cdt = table2d.dtype if deq is None else deq.dtype
     if table2d.shape != (nz * ny * nx, width):
         raise ValueError(f'brick table {tuple(table2d.shape)} does not match the cube '
                          f'{(nz, ny, nx)} and plan width {width}')
+    if deq is not None and (table2d.dtype != torch.int16 or tuple(deq.shape) != (4,)
+                            or deq.device != table2d.device):
+        raise ValueError('integrate_bricks: deq (4,) goes with an int16 table on its device')
     for a, shp in zip(ops, shapes):
-        if tuple(a.shape) != shp or a.device != table2d.device or a.dtype != table2d.dtype:
+        if tuple(a.shape) != shp or a.device != table2d.device or a.dtype != cdt:
             raise ValueError(f'integrate_bricks: operand {tuple(a.shape)} {a.dtype} {a.device} '
-                             f'does not match {shp} {table2d.dtype} {table2d.device}')
+                             f'does not match {shp} {cdt} {table2d.device}')
     if table2d.device.type == 'cpu':
-        return integrate_bricks_ref(table2d, *ops, plan, ys, xs, zs, z_clip)
+        return integrate_bricks_ref(table2d, *ops, plan, ys, xs, zs, z_clip, deq=deq)
     if table2d.device.type != 'cuda':
         raise ValueError(f'integrate_bricks: unsupported device {table2d.device}')
-    if table2d.dtype != torch.float32 or not all(a.is_contiguous() for a in (table2d, *ops)):
-        raise ValueError('integrate_bricks: the CUDA kernel takes contiguous float32 operands')
+    i16 = deq is not None
+    if (cdt != torch.float32 or (not i16 and table2d.dtype != torch.float32)
+            or not all(a.is_contiguous() for a in (table2d, *ops))):
+        raise ValueError('integrate_bricks: the CUDA kernels take a contiguous float32 or int16 '
+                         'table and contiguous float32 operands')
     if not 1 <= plan.G <= _KERNEL_MAX_G or ny < 2 or nx < 2:
         raise ValueError(f'integrate_bricks: G={plan.G} (max {_KERNEL_MAX_G}) on a '
-                         f'{ny}x{nx} grid is outside what the kernel takes')
-    # the kernel indexes with these: check them on the host
+                         f'{ny}x{nx} grid is outside what the kernels take')
+    # the kernels index with these: check them on the host
     idx_ok = ((plan.lvl >= 0).all() and (plan.lvl + 1 <= L).all()
               and (plan.wa_lvl >= 0).all() and (plan.wa_lvl < L).all()
               and (plan.wb_lvl >= 0).all() and (plan.wb_lvl < L).all()
@@ -394,6 +560,7 @@ def integrate_bricks(table2d, bnd_y, bnd_x, bnd_z, d2, ray_len, re_local,
     out = torch.empty((2, n), dtype=torch.float32, device=dev)
     kernels.launch_brick_integrate(
         table2d, *ops, plan_i, plan_f, anchor, y_axis, x_axis, out,
+        deq.contiguous() if i16 else None,
         G=plan.G, planes=plan.planes, wy=plan.wy, wx=plan.wx,
         y_lo=float(ys_np[0]), y_hi=float(ys_np[-1]), y_step=y_step or 0.0,
         y_uniform=y_step is not None,
@@ -401,6 +568,192 @@ def integrate_bricks(table2d, bnd_y, bnd_x, bnd_z, d2, ray_len, re_local,
         x_uniform=x_step is not None,
         z_lo=float(zs_np[0]), z_hi=float(zs_np[-1]), z_clip=z_clip)
     return out[0], out[1]
+
+
+def static_plan_from(plan: GroupPlan):
+    """Hashable (structure + constants) form of a GroupPlan.
+
+    Returns ``(groups, planes, wy, wx)``: ``groups`` is a tuple of
+    ``(anchor, samples)``, each sample the 9-tuple ``(lvl, frac, wa_lvl, wa,
+    wb_lvl, wb, zlo, zinv, dzoff)`` of plain Python numbers; padding slots
+    and all-padding groups are dropped.
+    """
+    groups = []
+    for gi in range(plan.anchor.size):
+        cnt = int((~plan.pad[gi]).sum())
+        if cnt == 0:
+            continue
+        samples = tuple(
+            (int(plan.lvl[gi, s]), float(plan.frac[gi, s]),
+             int(plan.wa_lvl[gi, s]), float(plan.wa[gi, s]),
+             int(plan.wb_lvl[gi, s]), float(plan.wb[gi, s]),
+             float(plan.zlo[gi, s]), float(plan.zinv[gi, s]),
+             int(plan.dzoff[gi, s]))
+            for s in range(cnt))
+        groups.append((int(plan.anchor[gi]), samples))
+    return (tuple(groups), int(plan.planes), int(getattr(plan, 'wy', 3)),
+            int(getattr(plan, 'wx', 3)))
+
+
+def static_samples(rays, samples, ys_np, xs_np, zs_np, cdt, z_clip: bool = True):
+    """The per-sample coordinate math of the XLA static-plan functions, for
+    one group: returns (per-sample tuples (iy, ix, fy, fx, fz, ok, wt, dzo),
+    anchor y cell, anchor x cell).
+
+    As the JAX functions compute it: the plan constants are Python floats
+    (f32 in f32 ops; ``f * (1 - f)`` is one Python constant), the z clip
+    bounds are float64 numpy scalars, so the clipped height and the z
+    fraction are float64 before the cast to ``cdt``.
+    """
+    bnd_y, bnd_x, bnd_z, d2, ray_len, re_local = rays
+    z_lo, z_hi = float(zs_np[0]), float(zs_np[-1])
+    persample, ay, ax = [], None, None
+    for (lv, f, wal, wav, wbl, wbv, zlo, zinv, dzo) in samples:
+        py = bnd_y[lv] + f * (bnd_y[lv + 1] - bnd_y[lv])
+        px = bnd_x[lv] + f * (bnd_x[lv + 1] - bnd_x[lv])
+        pz = bnd_z[lv] + f * (bnd_z[lv + 1] - bnd_z[lv])
+        hbar = 0.5 * (bnd_z[lv] + bnd_z[lv + 1])
+        pz = pz - (f * (1.0 - f)) * d2[lv] / (2.0 * (re_local + hbar))
+        if z_clip:
+            pz = pz.double().clamp(z_lo, z_hi)
+        pzd = pz.double()
+        bz = (pzd >= z_lo) & (pzd <= z_hi)
+        iy, fy, by = _locate(ys_np, py)
+        ix, fx, bx = _locate(xs_np, px)
+        fz = (pz - zlo) * zinv
+        rl = wav * ray_len[wal]
+        if wbv:
+            rl = rl + wbv * ray_len[wbl]
+        persample.append((iy, ix, fy.to(cdt), fx.to(cdt), fz.to(cdt), bz & by & bx,
+                          (1.0e-6 * rl).to(cdt), dzo))
+        ay = iy if ay is None else torch.minimum(ay, iy)
+        ax = ix if ax is None else torch.minimum(ax, ix)
+    return persample, ay, ax
+
+
+def static_brick_ref(table2d, bnd_y, bnd_x, bnd_z, d2, ray_len, re_local, groups,
+                     planes: int, wy: int, wx: int, ys, xs, zs, z_clip: bool = True, deq=None):
+    """Plain-torch port of the XLA ``_static_brick_fn`` (``groups`` from
+    :func:`static_plan_from`): per group, the samples' math, one gathered
+    brick row per ray (decoded with ``deq`` for an int16 table), the
+    combined trilinear weights U[plane][y][x], then one multiply-add per
+    used brick cell. Returns (wet (N,), hydro (N,))."""
+    ys_np, xs_np, zs_np = (np.asarray(a) for a in (ys, xs, zs))
+    ny, nx = ys_np.size, xs_np.size
+    cdt = deq.dtype if deq is not None else table2d.dtype
+    dev = table2d.device
+    rays = (bnd_y, bnd_x, bnd_z, d2, ray_len, re_local)
+    n = bnd_y.shape[1]
+    nan = torch.tensor(float('nan'), dtype=cdt, device=dev)
+    acc_w = torch.zeros(n, dtype=cdt, device=dev)
+    acc_h = torch.zeros(n, dtype=cdt, device=dev)
+    for za, samples in groups:
+        persample, ay, ax = static_samples(rays, samples, ys_np, xs_np, zs_np, cdt, z_clip)
+        brick = table2d.index_select(0, (za * ny + ay) * nx + ax).reshape(n, planes, wy, wx, 2)
+        if deq is not None:
+            brick = _deq_brick(brick, deq, cdt)
+        U = {}
+        for (iy, ix, fy, fx, fz, ok, wt, dzo) in persample:
+            dyi = iy - ay
+            dxi = ix - ax
+            ok = ok & (dyi <= wy - 2) & (dxi <= wx - 2)
+            gy = dyi.to(cdt) + fy
+            gx = dxi.to(cdt) + fx
+            wte = torch.where(ok, wt, nan)
+            wys = [(1.0 - (gy - k).abs()).clamp_min(0.0) for k in range(wy)]
+            wxs = [(1.0 - (gx - k).abs()).clamp_min(0.0) for k in range(wx)]
+            w0 = wte * (1.0 - fz)
+            w1 = wte * fz
+            for k in range(wy):
+                for l in range(wx):
+                    wkl = wys[k] * wxs[l]
+                    for dj, wj in ((dzo, w0), (dzo + 1, w1)):
+                        t = wj * wkl
+                        U[dj, k, l] = t if (dj, k, l) not in U else U[dj, k, l] + t
+        for j in range(planes):
+            for k in range(wy):
+                for l in range(wx):
+                    if (j, k, l) in U:
+                        acc_w = acc_w + brick[:, j, k, l, 0] * U[j, k, l]
+                        acc_h = acc_h + brick[:, j, k, l, 1] * U[j, k, l]
+    return acc_w, acc_h
+
+
+def _integrate_packed(packed2d, bnd_y, bnd_x, bnd_z, d2, ray_len, re_local,
+                      coord_lvl, fracs, wa_lvl, wa, wb_lvl, wb, ys, xs, zs,
+                      z_clip: bool = True, mode: str = 'pack16', deq=None):
+    """The pack16 / pack16_i16 / pack4 integrate (the JAX ``_integrate_packed``,
+    plain torch): per point of the plan, the segment lerp and sagitta,
+    locate in y, x and z, one pack16 row gather (decoded with ``deq`` for
+    pack16_i16) or four pack4 row gathers, the trilinear mix and the
+    trapezoid weight. The plan's numbers are tensors of the compute dtype,
+    as the JAX scan carries them. Returns (wet (N,), hydro (N,))."""
+    cdt = deq.dtype if deq is not None else packed2d.dtype
+    dev = packed2d.device
+    ys_np, xs_np, zs_np = (np.asarray(a) for a in (ys, xs, zs))
+    ny, nx = ys_np.size, xs_np.size
+    z_lo, z_hi = float(zs_np[0]), float(zs_np[-1])
+    lvl, la, lb = (np.asarray(a, dtype=np.int64) for a in (coord_lvl, wa_lvl, wb_lvl))
+    ff_t, ca_t, cb_t = (torch.as_tensor(np.asarray(a), dtype=cdt, device=dev)
+                        for a in (fracs, wa, wb))
+    n = bnd_y.shape[1]
+    nan = torch.tensor(float('nan'), dtype=cdt, device=dev)
+    if mode == 'pack16_i16':
+        sc, of = _i16_column_deq(16, deq, cdt)
+    acc_w = torch.zeros(n, dtype=cdt, device=dev)
+    acc_h = torch.zeros(n, dtype=cdt, device=dev)
+    for p in range(lvl.size):
+        lv, ff = int(lvl[p]), ff_t[p]
+        ly, hy = bnd_y[lv], bnd_y[lv + 1]
+        lx, hx = bnd_x[lv], bnd_x[lv + 1]
+        lz, hz = bnd_z[lv], bnd_z[lv + 1]
+        rl = ca_t[p] * ray_len[int(la[p])] + cb_t[p] * ray_len[int(lb[p])]
+        py = ly + ff * (hy - ly)
+        px = lx + ff * (hx - lx)
+        pz = lz + ff * (hz - lz)
+        hbar = 0.5 * (lz + hz)
+        pz = pz - ff * (1.0 - ff) * d2[lv] / (2.0 * (re_local + hbar))
+        if z_clip:
+            pz = pz.double().clamp(z_lo, z_hi)
+        iy, fy, by = _locate(ys_np, py)
+        ix, fx, bx = _locate(xs_np, px)
+        iz, fz, bz = _locate(zs_np, pz)
+        lin = (iz * ny + iy) * nx + ix
+        fy, fx, fz = fy.to(cdt), fx.to(cdt), fz.to(cdt)
+        if mode in ('pack16', 'pack16_i16'):
+            g = packed2d.index_select(0, lin)
+            if mode == 'pack16_i16':
+                g = torch.where(g == _I16_NAN, nan, g.to(cdt) * sc + of)
+            w00 = (1 - fy) * (1 - fx)
+            w01 = (1 - fy) * fx
+            w10 = fy * (1 - fx)
+            w11 = fy * fx
+            wlo = g[:, 0] * w00 + g[:, 2] * w01 + g[:, 4] * w10 + g[:, 6] * w11
+            hlo = g[:, 1] * w00 + g[:, 3] * w01 + g[:, 5] * w10 + g[:, 7] * w11
+            whi = g[:, 8] * w00 + g[:, 10] * w01 + g[:, 12] * w10 + g[:, 14] * w11
+            hhi = g[:, 9] * w00 + g[:, 11] * w01 + g[:, 13] * w10 + g[:, 15] * w11
+        elif mode == 'pack4':
+            def xl(rows):
+                g = packed2d.index_select(0, rows)
+                return g[:, 0] * (1 - fx) + g[:, 2] * fx, g[:, 1] * (1 - fx) + g[:, 3] * fx
+
+            w00v, h00v = xl(lin)
+            w01v, h01v = xl(lin + nx)
+            w10v, h10v = xl(lin + ny * nx)
+            w11v, h11v = xl(lin + ny * nx + nx)
+            wlo = w00v * (1 - fy) + w01v * fy
+            hlo = h00v * (1 - fy) + h01v * fy
+            whi = w10v * (1 - fy) + w11v * fy
+            hhi = h10v * (1 - fy) + h11v * fy
+        else:
+            raise ValueError(f'_integrate_packed: unknown mode {mode!r}')
+        ok = by & bx & bz
+        vw = torch.where(ok, wlo * (1 - fz) + whi * fz, nan)
+        vh = torch.where(ok, hlo * (1 - fz) + hhi * fz, nan)
+        wt = 1.0e-6 * rl
+        acc_w = acc_w + (wt * vw).to(cdt)
+        acc_h = acc_h + (wt * vh).to(cdt)
+    return acc_w, acc_h
 
 
 def slice_plan(cube_shape, table_dtype, ys, xs, zs, ray_lengths_max, heights, hstep_max,
@@ -419,21 +772,33 @@ def integrate_rays(cube_wet, cube_hydro, ys, xs, zs,
                    ray_lengths_max,
                    max_segment_length: float = MAX_SEGMENT_LENGTH,
                    z_clip: bool = True,
-                   packed2d=None, mode=None, *, heights, hstep_max):
+                   packed2d=None, mode=None, heights=None, hstep_max=None):
     """Integrate wet/hydro delay along all rays of one output-height slice.
 
     Segments are contiguous along each ray: level k runs from boundary k to
-    boundary k+1 of the (L+1, N) ``bnd_*`` arrays (model CRS, y/x/z). The
-    grouped plan is built from ``ray_lengths_max`` (L,), ``heights`` (L+1,)
-    and ``hstep_max`` (L,); ``packed2d``/``mode`` pass a table built once by
-    :func:`pack_cubes`. Returns (wet (N,), hydro (N,)) in meters.
+    boundary k+1 of the (L+1, N) ``bnd_*`` arrays (model CRS, y/x/z).
+    ``packed2d``/``mode`` pass a table built once by :func:`pack_cubes` (an
+    int16 mode's table is the ``(table, deq)`` pair). The brick modes
+    integrate a grouped plan built from ``ray_lengths_max`` (L,),
+    ``heights`` (L+1,) and ``hstep_max`` (L,); the packed modes the point
+    plan of ``ray_lengths_max``. Returns (wet (N,), hydro (N,)) in meters.
     """
+    grouped_ok = heights is not None and hstep_max is not None
     if packed2d is None:
-        packed2d, mode = pack_cubes(cube_wet, cube_hydro, grouped=True)
-    if mode != 'brick':
-        raise NotImplementedError(f'mode {mode!r} {_NOT_PORTED}')
-    plan = slice_plan(cube_wet.shape, _np_dtype(packed2d), ys, xs, zs, ray_lengths_max,
-                      heights, hstep_max, max_segment_length)
-    dt = packed2d.dtype
+        packed2d, mode = pack_cubes(cube_wet, cube_hydro, grouped=grouped_ok)
+    deq = None
+    if mode in ('pack16_i16', 'brick_i16'):
+        packed2d, deq = packed2d
+    dt = packed2d.dtype if deq is None else deq.dtype
     rays = [a.to(dt) for a in (bnd_y, bnd_x, bnd_z, d2, ray_len, re_local)]
-    return integrate_bricks(packed2d, *rays, plan, ys, xs, zs, z_clip)
+    if mode in ('brick', 'brick_i16'):
+        if not grouped_ok:
+            raise ValueError(f'mode {mode!r} needs heights and hstep_max')
+        plan = slice_plan(cube_wet.shape, _np_dtype(packed2d), ys, xs, zs, ray_lengths_max,
+                          heights, hstep_max, max_segment_length)
+        if packed2d.shape[1] != plan.planes * plan.wy * plan.wx * 2:
+            raise ValueError(f'packed table width {packed2d.shape[1]} does not match the brick '
+                             f'spec of a {tuple(cube_wet.shape)} {packed2d.dtype} table')
+        return integrate_bricks(packed2d, *rays, plan, ys, xs, zs, z_clip, deq=deq)
+    plan = _pad_point_plan(build_sampling_plan(ray_lengths_max, max_segment_length), _PLAN_BUCKET)
+    return _integrate_packed(packed2d, *rays, *plan, ys, xs, zs, z_clip=z_clip, mode=mode, deq=deq)

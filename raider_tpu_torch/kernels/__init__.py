@@ -27,8 +27,9 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / 'build' / 'kernels'
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-Xcompiler', '-fPIC']
 
-LAUNCHES = {'ztd_totals': 0, 'brick_integrate': 0, 'window_integrate': 0, 'probe_load': 0,
-            'probe_bitcast_i16_bf16': 0}
+LAUNCHES = {'ztd_totals': 0, 'brick_integrate': 0, 'brick_integrate_i16': 0,
+            'window_integrate': 0, 'probe_load': 0, 'probe_bitcast_i16_bf16': 0,
+            'brick_contract': 0, 'brick_group_rows': 0, 'brick_group_merged': 0}
 
 # element types of the S4 probe, by the suffix of their launcher
 PROBE_DTYPES = {'bf16': torch.bfloat16, 'f16': torch.float16, 'i16': torch.int16}
@@ -120,6 +121,35 @@ def lib() -> ctypes.CDLL:
             f, f, i,             # z lo, hi, z_clip
             p]                   # stream
         so.brick_integrate_launch.restype = i
+        so.brick_integrate_i16_launch.argtypes = [
+            p,                   # int16 table
+            p, p, p, p, p, p,    # bnd_y, bnd_x, bnd_z, d2, ray_len, re
+            p, p, p,             # plan_i, plan_f, anchor
+            p, p,                # y axis, x axis
+            p, p,                # out (2, N), deq [sw, ow, sh, oh]
+            ll, i, i, i, i, i, i, i,      # n, n_groups, G, planes, wy, wx, ny, nx
+            f, f, f, i,          # y lo, hi, step, uniform
+            f, f, f, i,          # x lo, hi, step, uniform
+            f, f, i,             # z lo, hi, z_clip
+            p]                   # stream
+        so.brick_integrate_i16_launch.restype = i
+        so.brick_contract_launch.argtypes = [p, p, p, p, p, ll, i, i, i, i, p]
+        so.brick_contract_launch.restype = i
+        so.brick_group_rows_launch.argtypes = [
+            p, p, p, p, p, p, p,  # brickT, by, bx, bz, d2, rl, aux
+            p, p, p,              # plan_i, plan_f, out
+            ll, i,                # n, S
+            f, f, f, f, f, f,     # y lo, hi, x lo, hi, z lo, hi
+            f, f, i, i, i, i,     # inv_sy, inv_sx, ny, nx, wy, wx
+            p]                    # stream
+        so.brick_group_rows_launch.restype = i
+        so.brick_group_merged_launch.argtypes = [
+            p, p, p, p, p,        # brick, merged, plan_i, plan_f, out
+            ll, i, i, i, i,       # n, S, width, nb, nl
+            f, f, f, f, f, f,     # y lo, hi, x lo, hi, z lo, hi
+            f, f, i, i, i, i,     # inv_sy, inv_sx, ny, nx, wy, wx
+            p]                    # stream
+        so.brick_group_merged_launch.restype = i
         so.window_integrate_launch.argtypes = [
             p, p, p, p, p,       # lo, hi, d2, ray_len, re
             p, p,                # cube_w, cube_h
@@ -164,21 +194,54 @@ def launch_ztd_totals(t, p, e, dz, wet, hyd, k1, k2, k3) -> None:
 
 
 def launch_brick_integrate(table, bnd_y, bnd_x, bnd_z, d2, ray_len, re, plan_i, plan_f,
-                           anchor, y_axis, x_axis, out, *, G, planes, wy, wx,
+                           anchor, y_axis, x_axis, out, deq=None, *, G, planes, wy, wx,
                            y_lo, y_hi, y_step, y_uniform, x_lo, x_hi, x_step, x_uniform,
                            z_lo, z_hi, z_clip) -> None:
-    """Kernel B2 (arguments checked by the caller)."""
+    """Kernel B2 on a float32 table, or K4 on an int16 table with ``deq``
+    (arguments checked by the caller)."""
     n = bnd_y.shape[1]
     n_groups = anchor.shape[0]
     ny, nx = y_axis.shape[0], x_axis.shape[0]
-    code = lib().brick_integrate_launch(
+    name = 'brick_integrate' if deq is None else 'brick_integrate_i16'
+    extra = () if deq is None else (_ptr(deq),)
+    code = getattr(lib(), f'{name}_launch')(
         _ptr(table), _ptr(bnd_y), _ptr(bnd_x), _ptr(bnd_z), _ptr(d2), _ptr(ray_len), _ptr(re),
         _ptr(plan_i), _ptr(plan_f), _ptr(anchor), _ptr(y_axis), _ptr(x_axis), _ptr(out),
-        n, n_groups, G, planes, wy, wx, ny, nx,
+        *extra, n, n_groups, G, planes, wy, wx, ny, nx,
         y_lo, y_hi, y_step, int(y_uniform), x_lo, x_hi, x_step, int(x_uniform),
         z_lo, z_hi, int(z_clip), _stream())
-    _check('brick_integrate', code)
-    LAUNCHES['brick_integrate'] += 1
+    _check(name, code)
+    LAUNCHES[name] += 1
+
+
+def launch_brick_contract(brick, scal, dzos, out_w, out_h, *, planes, wy, wx) -> None:
+    """Kernel K1 on one group (arguments checked by the caller)."""
+    n = brick.shape[0]
+    code = lib().brick_contract_launch(_ptr(brick), _ptr(scal), _ptr(dzos), _ptr(out_w),
+                                       _ptr(out_h), n, dzos.shape[0], planes, wy, wx, _stream())
+    _check('brick_contract', code)
+    LAUNCHES['brick_contract'] += 1
+
+
+def launch_brick_group_rows(brickT, by, bx, bz, d2, rl, aux, plan_i, plan_f, out, *,
+                            consts) -> None:
+    """Kernel K2 on one group (arguments checked by the caller); ``consts``
+    is (y_lo, y_hi, x_lo, x_hi, z_lo, z_hi, inv_sy, inv_sx, ny, nx, wy, wx)."""
+    code = lib().brick_group_rows_launch(
+        _ptr(brickT), _ptr(by), _ptr(bx), _ptr(bz), _ptr(d2), _ptr(rl), _ptr(aux),
+        _ptr(plan_i), _ptr(plan_f), _ptr(out), aux.shape[1], plan_i.shape[0], *consts,
+        _stream())
+    _check('brick_group_rows', code)
+    LAUNCHES['brick_group_rows'] += 1
+
+
+def launch_brick_group_merged(brick, merged, plan_i, plan_f, out, *, nb, nl, consts) -> None:
+    """Kernel K3 on one group (arguments checked by the caller)."""
+    code = lib().brick_group_merged_launch(
+        _ptr(brick), _ptr(merged), _ptr(plan_i), _ptr(plan_f), _ptr(out), brick.shape[0],
+        plan_i.shape[0], brick.shape[1], nb, nl, *consts, _stream())
+    _check('brick_group_merged', code)
+    LAUNCHES['brick_group_merged'] += 1
 
 
 def launch_window_integrate(lo, hi, d2, ray_len, re, cube_w, cube_h, ay, ax, plan_i, plan_f,

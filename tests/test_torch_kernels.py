@@ -8,8 +8,8 @@ card and without jax:
 
 The kernels use round-to-nearest arithmetic in their twins' order of
 operations, so on NaN-free inputs they must agree with the twins exactly;
-the stated tolerances (B1 2e-6, B2 and B3 1e-5 relative; S4 and S5 exact)
-are the contract the smoke run holds them to.
+the stated tolerances (B1 2e-6; B2, B3, K1-K4 1e-5 relative; S4 and S5
+exact) are the contract the smoke run holds them to.
 """
 
 import os
@@ -21,10 +21,11 @@ import torch
 from raider_tpu_torch import kernels
 from raider_tpu_torch.delay.pallas_window import (integrate_rays_windowed, prepare_windowed,
                                                   window_integrate, window_integrate_ref)
+from raider_tpu_torch.delay import raytrace
 from raider_tpu_torch.delay.raytrace import (build_group_plan, integrate_bricks,
                                              integrate_bricks_ref, pack_cubes)
 from raider_tpu_torch.ops.ztd import ztd_totals, ztd_totals_ref
-from raider_tpu_torch.scripts import probe_f16, window_ablation
+from raider_tpu_torch.scripts import kernel_profile, probe_f16, window_ablation
 
 K1, K2, K3 = 0.776, 0.233, 3.75e3
 
@@ -67,7 +68,7 @@ def contiguous_rays(zs, n_rays, rng, ys, xs, zenith_deg=(20, 40), device='cpu'):
     return rays, np.nanmax(ray_len, axis=1), hstep * (1 + 1e-5) + 1e-7
 
 
-def _brick_case(device, uniform=True, seed=0, n_rays=3000, mutate=None):
+def _brick_case(device, uniform=True, seed=0, n_rays=3000, mutate=None, mode='brick', spec=None):
     rng = np.random.default_rng(seed)
     zs = -500.0 + 27000.0 * np.linspace(0.0, 1.0, 18) ** 1.6
     ys = np.linspace(33.0, 34.0, 11)
@@ -81,8 +82,17 @@ def _brick_case(device, uniform=True, seed=0, n_rays=3000, mutate=None):
     rays, plm, hstep = contiguous_rays(zs, n_rays, rng, ys, xs, device=device)
     if mutate is not None:
         mutate(rays)
-    table, _ = pack_cubes(wet, hyd, grouped=True)
-    plan = build_group_plan(plm, zs, hstep, ys, xs, zs)
+    if spec is None:
+        table, _ = pack_cubes(wet, hyd, mode=mode)
+        plan = build_group_plan(plm, zs, hstep, ys, xs, zs)
+    else:
+        planes, wy, wx, gmax = spec
+        qw, qh, deq = raytrace._quantized_pair(wet, hyd)
+        table = raytrace._pack_bricks(*((qw, qh) if mode == 'brick_i16' else (wet, hyd)),
+                                      planes, wy, wx)
+        table = (table, deq) if mode == 'brick_i16' else table
+        plan = build_group_plan(plm, zs, hstep, ys, xs, zs, group_max=gmax, planes=planes,
+                                wy=wy, wx=wx)
     return table, rays, plan, ys, xs, zs
 
 
@@ -107,7 +117,8 @@ def test_library_name_tracks_the_sources():
     assert p == kernels.library_path()
     assert p.parent == kernels.BUILD_DIR and p.name.startswith('libraider_kernels_')
     assert {s.name for s in kernels._sources()} >= {'ztd_totals.cu', 'brick_integrate.cu',
-                                                     'window_integrate.cu', 'probe_f16.cu'}
+                                                     'window_integrate.cu', 'probe_f16.cu',
+                                                     'brick_contract.cu', 'brick_group.cu'}
 
 
 _FAKE_NVCC = """#!/bin/sh
@@ -149,8 +160,10 @@ def test_reset_launch_counts():
     kernels.LAUNCHES['ztd_totals'] += 3
     kernels.LAUNCHES['window_integrate'] += 2
     kernels.reset_launch_counts()
-    assert kernels.LAUNCHES == {'ztd_totals': 0, 'brick_integrate': 0, 'window_integrate': 0,
-                                'probe_load': 0, 'probe_bitcast_i16_bf16': 0}
+    assert kernels.LAUNCHES == {'ztd_totals': 0, 'brick_integrate': 0, 'brick_integrate_i16': 0,
+                                'window_integrate': 0, 'probe_load': 0,
+                                'probe_bitcast_i16_bf16': 0, 'brick_contract': 0,
+                                'brick_group_rows': 0, 'brick_group_merged': 0}
 
 
 @pytest.mark.parametrize('case', ['plain', 'bad_rays', 'window'])
@@ -306,3 +319,145 @@ def test_probe_kernels_reject_non_contiguous(cuda):
         probe_f16.probe_load(x)
     with pytest.raises(ValueError):
         probe_f16.probe_bitcast_i16_bf16(x)
+
+
+def _same(a, b, tol=1e-5):
+    """Equal NaN masks and max-rel <= tol on the rest."""
+    assert torch.equal(torch.isnan(a), torch.isnan(b))
+    ok = ~torch.isnan(b)
+    if bool(ok.any()):
+        assert float(((a[ok] - b[ok]).abs() / b[ok].abs().clamp_min(1e-30)).max()) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', ['uniform', 'bad_rays', 'window', 'g24'])
+def test_brick_i16_kernel_matches_twin(cuda, case):
+    """Kernel K4 (B2 on an int16 brick table) against the twin with deq."""
+    kw = dict(uniform={}, bad_rays=dict(mutate=_mutate_bad_rays),
+              window=dict(mutate=_mutate_fast_rays), g24=dict(spec=(8, 4, 4, 24)))[case]
+    (table, deq), rays, plan, ys, xs, zs = _brick_case(cuda, mode='brick_i16', **kw)
+    assert table.dtype == torch.int16
+    before = dict(kernels.LAUNCHES)
+    w, h = integrate_bricks(table, *rays, plan, ys, xs, zs, deq=deq)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES['brick_integrate_i16'] == before['brick_integrate_i16'] + 1
+    assert kernels.LAUNCHES['brick_integrate'] == before['brick_integrate']
+    rw, rh = integrate_bricks_ref(table, *rays, plan, ys, xs, zs, deq=deq)
+    _same(w, rw)
+    _same(h, rh)
+    assert torch.isnan(w).any() == (case in ('bad_rays', 'window'))
+
+
+@pytest.mark.cuda
+def test_brick_kernel_takes_24_samples_a_group(cuda):
+    table, rays, plan, ys, xs, zs = _brick_case(cuda, spec=(8, 4, 4, 24))
+    assert plan.G == 24 and (~plan.pad).sum(1).max() > 8
+    w, h = integrate_bricks(table, *rays, plan, ys, xs, zs)
+    rw, rh = integrate_bricks_ref(table, *rays, plan, ys, xs, zs)
+    _same(w, rw)
+    _same(h, rh)
+    assert torch.isfinite(w).all()
+
+
+def _profile_case(device, spec, bad_rays=False):
+    sc = kernel_profile.build_scene(device, n_rays=2000, grid=(12, 40, 40), seed=2)
+    if bad_rays:
+        sc['rays'][0][:, :5] = float('nan')
+        sc['rays'][1][:, 9] += 30.0
+    return sc, kernel_profile.spec_setup(sc, spec)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('spec', [(7, 3, 3, 6), (8, 4, 4, 24)])
+@pytest.mark.parametrize('bad_rays', [False, True])
+def test_contract_kernel_matches_twin(cuda, spec, bad_rays):
+    """Kernel K1 against its twin on every group of the profile scene."""
+    sc, st = _profile_case(cuda, spec, bad_rays)
+    n = 0
+    for brick, scal, dzos in kernel_profile.contract_inputs(st['table'], sc['rays'],
+                                                           st['groups'], st['wy'], st['wx'],
+                                                           sc['ys'], sc['xs'], sc['zs']):
+        before = kernels.LAUNCHES['brick_contract']
+        got = kernel_profile.brick_contract(brick, scal, dzos, st['planes'], st['wy'], st['wx'])
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES['brick_contract'] == before + 1
+        want = kernel_profile.contract_ref(brick, scal, dzos, st['planes'], st['wy'], st['wx'])
+        for a, b in zip(got, want):
+            _same(a, b)
+        n += 1
+    assert n == len(st['groups'])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('spec', [(7, 3, 3, 6), (8, 4, 4, 24)])
+@pytest.mark.parametrize('bad_rays', [False, True])
+def test_group_kernels_match_twins(cuda, spec, bad_rays):
+    """Kernels K2 (rows) and K3 (merged) against their twins, group by group."""
+    sc, st = _profile_case(cuda, spec, bad_rays)
+    consts = kernel_profile.group_consts(sc['ys'], sc['xs'], sc['zs'], st['wy'], st['wx'])
+    for ops in kernel_profile.rows_inputs(st['table'], sc['rays'], st['groups'], sc['ys'],
+                                          sc['xs']):
+        before = kernels.LAUNCHES['brick_group_rows']
+        got = kernel_profile.brick_group_rows(*ops, consts)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES['brick_group_rows'] == before + 1
+        _same(got, kernel_profile.group_rows_ref(*ops, consts))
+    for ops in kernel_profile.merged_inputs(st['table'], sc['rays'], st['groups'], sc['ys'],
+                                            sc['xs']):
+        before = kernels.LAUNCHES['brick_group_merged']
+        got = kernel_profile.brick_group_merged(*ops, consts)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES['brick_group_merged'] == before + 1
+        _same(got, kernel_profile.group_merged_ref(*ops, consts))
+
+
+@pytest.mark.cuda
+def test_profile_variants_pass_their_check_on_the_card(cuda):
+    """Every Phase 6 variant through ``run`` on a small scene: each passes
+    the 4096-ray check against prod and launches its kernel."""
+    kernels.reset_launch_counts()
+    variants = ('prod', 'tensor', 'pallas', 'pallas2', 'prodmerged', 'prodpallas', 'prodi16')
+    recs = kernel_profile.run(cuda, (7, 3, 3, 6), variants, n_rays=5000, grid=(20, 60, 60),
+                              say=lambda s: None)
+    assert [r['variant'] for r in recs if 'ms' in r] == list(variants)
+    assert all(r['ms'] > 0 for r in recs if 'ms' in r)
+    for k in ('brick_contract', 'brick_group_rows', 'brick_group_merged', 'brick_integrate',
+              'brick_integrate_i16'):
+        assert kernels.LAUNCHES[k] >= 1, k
+
+
+@pytest.mark.cuda
+def test_failed_build_raises_and_never_runs_a_twin(cuda, tmp_path, monkeypatch):
+    """A CUDA tensor with a failed build raises; no wrapper gives way to its twin."""
+    fake = tmp_path / 'bin' / 'nvcc'
+    fake.parent.mkdir()
+    fake.write_text(_FAKE_NVCC)
+    fake.chmod(0o755)
+    monkeypatch.setenv('PATH', f'{fake.parent}{os.pathsep}{os.environ["PATH"]}')
+    monkeypatch.setenv('FAIL_ON_PROBE', '1')
+    monkeypatch.setattr(kernels, 'BUILD_DIR', tmp_path / 'build')
+    monkeypatch.setattr(kernels, '_lib', None)
+
+    def twin_ran(*args, **kwargs):
+        raise AssertionError('a twin ran for CUDA tensors')
+
+    for mod, name in ((raytrace, 'integrate_bricks_ref'), (kernel_profile, 'contract_ref'),
+                      (kernel_profile, 'group_rows_ref'), (kernel_profile, 'group_merged_ref')):
+        monkeypatch.setattr(mod, name, twin_ran)
+    (table, deq), rays, plan, ys, xs, zs = _brick_case(cuda, n_rays=64, mode='brick_i16')
+    with pytest.raises(RuntimeError, match='nvcc failed'):
+        integrate_bricks(table, *rays, plan, ys, xs, zs, deq=deq)
+    sc, st = _profile_case(cuda, (7, 3, 3, 6))
+    brick, scal, dzos = next(kernel_profile.contract_inputs(
+        st['table'], sc['rays'], st['groups'], st['wy'], st['wx'], sc['ys'], sc['xs'], sc['zs']))
+    with pytest.raises(RuntimeError, match='nvcc failed'):
+        kernel_profile.brick_contract(brick, scal, dzos, st['planes'], st['wy'], st['wx'])
+    consts = kernel_profile.group_consts(sc['ys'], sc['xs'], sc['zs'], st['wy'], st['wx'])
+    ops = next(kernel_profile.rows_inputs(st['table'], sc['rays'], st['groups'], sc['ys'],
+                                          sc['xs']))
+    with pytest.raises(RuntimeError, match='nvcc failed'):
+        kernel_profile.brick_group_rows(*ops, consts)
+    ops = next(kernel_profile.merged_inputs(st['table'], sc['rays'], st['groups'], sc['ys'],
+                                            sc['xs']))
+    with pytest.raises(RuntimeError, match='nvcc failed'):
+        kernel_profile.brick_group_merged(*ops, consts)

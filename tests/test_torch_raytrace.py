@@ -161,6 +161,14 @@ def test_integrate_rays_matches_jax():
 
 @pytest.mark.parametrize('mode', ['pack16', 'pack16_i16', 'pack4', 'brick_i16'])
 def test_unported_modes_name_the_roadmap(mode):
+    """The modes ROADMAP A3 listed as unported now pack (int16 modes with
+    their deq); an unknown mode raises."""
     cube = torch.ones((3, 4, 5))
-    with pytest.raises(NotImplementedError, match='A3'):
-        t_rt.pack_cubes(cube, cube, mode=mode)
+    table, got = t_rt.pack_cubes(cube, cube, mode=mode)
+    assert got == mode
+    if mode.endswith('i16'):
+        table, deq = table
+        assert table.dtype == torch.int16 and tuple(deq.shape) == (4,)
+    assert table.shape[0] == cube.numel()
+    with pytest.raises(ValueError, match='unknown table mode'):
+        t_rt.pack_cubes(cube, cube, mode=mode + '_x')

@@ -116,6 +116,22 @@ _NO_JAX_SCRIPT = textwrap.dedent('''
                               say=lambda s: None)
     assert rec['max_rel'] < 1e-5, rec
     assert all(r['max_abs_err'] == 0.0 for r in probe_f16.run('cpu', n=64, say=lambda s: None))
+    import torch
+    from raider_tpu_torch.delay.raytrace import integrate_rays, pack_cubes
+    from raider_tpu_torch.scripts import kernel_profile
+    recs = kernel_profile.run('cpu', (7, 3, 3, 6), ('prod', 'pallas', 'pallas2', 'prodmerged',
+                                                    'prodi16'), n_rays=64, grid=(10, 30, 30),
+                              say=lambda s: None)
+    assert sum(bool(r.get('equiv_ok')) for r in recs) == 4, recs
+    assert len(kernel_profile.run('cpu', 'split', n_rays=64, grid=(10, 30, 30),
+                                  say=lambda s: None)) == 3
+    sc = kernel_profile.build_scene('cpu', n_rays=64, grid=(10, 30, 30))
+    for mode in ('pack16', 'pack16_i16', 'pack4', 'brick_i16'):
+        table, _ = pack_cubes(sc['wet_d'], sc['hydro_d'], mode=mode)
+        w, h = integrate_rays(sc['wet_d'], sc['hydro_d'], sc['ys'], sc['xs'], sc['zs'],
+                              *sc['rays'], sc['per_level_max'], packed2d=table, mode=mode,
+                              heights=sc['heights'], hstep_max=sc['hstep_max'])
+        assert torch.isfinite(w).float().mean() > 0.9, mode
     assert not any(m == 'jax' or m.startswith(('jax.', 'raider_tpu.'))
                    for m in sys.modules if sys.modules[m] is not None)
     print('NO_JAX_OK')
@@ -131,9 +147,11 @@ def test_port_runs_with_jax_blocked():
 
 def test_entry_points_default_to_the_card():
     from raider_tpu_torch.delay.pallas_window import integrate_rays_windowed
+    from raider_tpu_torch.scripts import kernel_profile
     from raider_tpu_torch.wx.base import WeatherModel
 
-    for fn in (t_engine.tropo_delay, WeatherModel.load, integrate_rays_windowed):
+    for fn in (t_engine.tropo_delay, WeatherModel.load, integrate_rays_windowed,
+               kernel_profile.run, kernel_profile.build_scene):
         assert inspect.signature(fn).parameters['device'].default == 'cuda', fn
 
 
