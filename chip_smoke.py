@@ -17,7 +17,8 @@ Phases, each printing one line; any failure exits non-zero:
      and a raytraced request over a ~1.2M-pixel grid at three heights. The
      kernel launch counts of this phase must be >= 1, the cubes mostly
      finite, and a 64x64 sub-grid of the raytraced 0 m slice must match a
-     plain-torch recomputation.
+     plain-torch recomputation; then B2 is timed on the whole 0 m slice's
+     coherent pixel rays, beside phase 2's incoherent ones.
   4. the windowed path: the window ablation's scene (a 50x400x400 cube,
      1000x1000 coherent rays) through ``integrate_rays_windowed`` (kernel
      B3), which must take the batch; then B3 against its twin on the same
@@ -46,6 +47,7 @@ operations at 67 TFLOP/s, whichever is larger); the last line is
 
 import datetime as dt
 import json
+import re
 import sys
 import time
 
@@ -121,6 +123,30 @@ def brick_rows_used(torch, plan, bnd_y, bnd_x, ys, xs) -> int:
             ax = ix if ax is None else torch.minimum(ax, ix)
         rows.append((int(plan.anchor[g]) * len(ys) + ay) * len(xs) + ax)
     return int(torch.unique(torch.cat(rows)).numel())
+
+
+def brick_shape(kernels, plan, table, n_rays: int) -> dict:
+    """Kernel B2/K4's launch shape for this plan and table, and the bytes its
+    staged planes move: per ray and group, each plane some sample of the
+    group reads (dzo, dzo+1), wy x wx (wet, hydro) pairs; the kernel's ring
+    copies each once, since dzo never falls within a group."""
+    isz = table.element_size()
+    threads, smem = kernels.brick_launch_shape(plan.wy, plan.wx, isz, plan.G, plan.anchor.size)
+    planes = sum(len({int(d) + k for d, p in zip(plan.dzoff[g], plan.pad[g]) if not p
+                      for k in (0, 1)}) for g in range(plan.anchor.size))
+    return dict(threads=threads, smem_bytes=smem,
+                issued_bytes=n_rays * planes * plan.wy * plan.wx * 2 * isz)
+
+
+def brick_resources(kernels) -> dict:
+    """Registers and spills that ptxas reported for each B2/K4 instance
+    ('f32 3x3', 'i16 4x4', ...; '0x0' is the instance for any other window)."""
+    out = {}
+    for fn, res in kernels.ptxas_resources('brick_integrate.cu').items():
+        m = re.search(r'brick_integrate_kernelI([fs])Li(\d+)ELi(\d+)E', fn)
+        if m:
+            out[f"{'f32' if m.group(1) == 'f' else 'i16'} {m.group(2)}x{m.group(3)}"] = res
+    return out
 
 
 def window_cells_used(torch, b) -> int:
@@ -228,14 +254,15 @@ def phase_kernels(torch, kernels):
     n_samples = int((~plan.pad).sum()) * n_rays
     b2_bytes = 4 * n_rays * (3 * nz + 2 * (nz - 1) + 1 + 2) + 4 * width * n_rows
     b2_bound = bound(b2_bytes, 300 * n_samples)
+    shape = brick_shape(kernels, plan, table, n_rays)
     say(f'B1 bound {b1_bound}; B2 reads {n_rows} distinct table rows '
         f'({4 * width * n_rows / 1e9:.3f} GB of the {table.numel() * 4 / 1e9:.3f} GB table), '
-        f'{b2_bytes / 1e9:.3f} GB in all: bound {b2_bound}')
+        f'{b2_bytes / 1e9:.3f} GB in all: bound {b2_bound}; launch {shape}')
     return {
         'ztd_totals': dict(max_abs_err=b1_abs, ms=b1_ms, plain_ms=b1_plain, **b1_bound,
                            library_ms=None),
         'brick_integrate': dict(max_abs_err=b2_abs, ms=b2_ms, plain_ms=b2_plain, **b2_bound,
-                                library_ms=None),
+                                library_ms=None, **shape),
     }
 
 
@@ -289,13 +316,16 @@ def polar_orbit():
                  ref_time=dt.datetime(2020, 1, 1, 12, 0, 0))
 
 
-def phase_main_path(torch, kernels):
-    """Phase 3: the main path through the user entry points."""
+def phase_main_path(torch, kernels, b2_incoherent_ms):
+    """Phase 3: the main path through the user entry points; returns its
+    launch counts and B2's time on its 0 m slice."""
     from raider_tpu_torch.delay import engine
-    from raider_tpu_torch.delay.raytrace import integrate_bricks_ref, pack_cubes, slice_plan
+    from raider_tpu_torch.delay.raytrace import (integrate_bricks, integrate_bricks_ref,
+                                                 pack_cubes, slice_plan)
     from raider_tpu_torch.geodesy import get_Re
     from raider_tpu_torch.geometry import BoundingBox, Raytracing, Zenith
     from raider_tpu_torch.ops.interp import interp3d_points
+    from raider_tpu_torch.scripts import cuda_ms
 
     when = dt.datetime(2020, 1, 1, 12, 0, 0)
     model = smoke_model_class()()
@@ -391,7 +421,15 @@ def phase_main_path(torch, kernels):
     say(f'raytraced 0 m slice vs plain-torch recomputation on a 64x64 sub-grid: '
         f'max |diff| {sub_err:.3e} m')
     check(sub_err <= SUBGRID_TOL, f'sub-grid twin check {sub_err} m > {SUBGRID_TOL} m')
-    return launches
+
+    # B2 on the whole 0 m slice: the main path's coherent pixel rays
+    full = [geom[k].float().contiguous() for k in ('bnd_y', 'bnd_x', 'bnd_z', 'd2', 'ray_len')]
+    full.append(get_Re(lat).float())
+    main_ms = cuda_ms(lambda: integrate_bricks(table, *full, plan, ys_k, xs_k, wm.zs))
+    say(f'B2 on the 0 m slice of the main path ({lat.numel()} coherent pixel rays, '
+        f'{plan.anchor.size} groups, launch {brick_shape(kernels, plan, table, lat.numel())}): '
+        f'kernel {main_ms:.3f} ms; phase 2 ({N_RAYS} incoherent rays) {b2_incoherent_ms:.3f} ms')
+    return launches, main_ms
 
 
 def phase_window(torch, kernels):
@@ -593,15 +631,16 @@ def phase_profile(torch, kernels):
     L = rays[3].shape[0]
     k4_bytes = 4 * n * (3 * (L + 1) + 2 * L + 1 + 2) + 2 * t16.shape[1] * n_rows
     b = bound(k4_bytes, 300 * plan.n_points * n)
+    shape = brick_shape(kernels, plan, t16, n)
     say(f'brick_integrate_i16 vs twin on {n} rays: max-rel {rel:.3e} max-abs {err:.3e} m, NaN masks '
         f'equal {same}; vs f32 B2 max-abs {err_b2:.3e} m, NaN masks equal {same_b2}; kernel '
         f'{ms:.3f} ms, twin {plain:.3f} ms, f32 B2 {b2_ms:.3f} ms; {n_rows} distinct '
-        f'{2 * t16.shape[1]}-byte rows; bound {b}')
+        f'{2 * t16.shape[1]}-byte rows; bound {b}; launch {shape}')
     check(same and same_b2, 'K4 NaN masks differ from its twin or from B2')
     check(rel <= K_TOL, f'K4 max-rel {rel} > {K_TOL}')
     check(err_b2 <= I16_TOL, f'K4 vs f32 B2 max-abs {err_b2} > {I16_TOL} m')
     out['brick_integrate_i16'] = dict(max_abs_err=err, ms=ms, plain_ms=plain, **b,
-                                      library_ms=None, max_abs_vs_f32_b2=err_b2,
+                                      library_ms=None, **shape, max_abs_vs_f32_b2=err_b2,
                                       f32_b2_ms=b2_ms,
                                       variant_ms=timed[(7, 3, 3, 6), 'prodi16'],
                                       prodpallas_ms=timed[(7, 3, 3, 6), 'prodpallas'])
@@ -751,9 +790,12 @@ def main() -> int:
     kernels.lib()
     say(f'build: {so.name} in {time.perf_counter() - t0:.2f} s (nvcc '
         f'{"ran" if kernels.build_seconds is not None else "skipped: cached"})')
+    ptxas = brick_resources(kernels)
+    say(f'ptxas, B2/K4 instances: {json.dumps(ptxas)}')
 
     measured = phase_kernels(torch, kernels)
-    launches = phase_main_path(torch, kernels)
+    launches, main_ms = phase_main_path(torch, kernels, measured['brick_integrate']['ms'])
+    measured['brick_integrate']['main_path_ms'] = main_ms
     launches_w, b3 = phase_window(torch, kernels)
     launches_p, s4, s5 = phase_probes(torch, kernels)
     launches_k, prof = phase_profile(torch, kernels)
@@ -767,7 +809,7 @@ def main() -> int:
         {'name': 'brick_integrate', 'route': 'cuda',
          'source': 'raider_tpu_torch/csrc/brick_integrate.cu',
          'replaces': 'raider_tpu/delay/raytrace.py:704', 'launches': launches['brick_integrate'],
-         **measured['brick_integrate']},
+         **measured['brick_integrate'], 'ptxas': ptxas.get('f32 3x3')},
         {'name': 'window_integrate', 'route': 'cuda',
          'source': 'raider_tpu_torch/csrc/window_integrate.cu',
          'replaces': 'raider_tpu/delay/pallas_window.py:217',
@@ -792,7 +834,8 @@ def main() -> int:
          'source': 'raider_tpu_torch/csrc/brick_integrate.cu',
          'replaces': 'raider_tpu/delay/raytrace.py:704',
          'launches': launches_k['brick_integrate_i16'],
-         'launches_midcube': launches_l['brick_integrate_i16'], **prof['brick_integrate_i16']},
+         'launches_midcube': launches_l['brick_integrate_i16'], **prof['brick_integrate_i16'],
+         'ptxas': ptxas.get('i16 3x3')},
     ]}
     say(json.dumps(record))
     say(json.dumps({'ok': True, 'device': {'platform': 'gpu',

@@ -58,10 +58,6 @@ _CORNERS = [(0, 0, 0), (0, 0, 1), (0, 1, 0), (0, 1, 1),
 # padded groups integrate to exactly zero and the kernel skips them.
 _PLAN_BUCKET = 4
 
-# most samples per group the CUDA kernels hold in registers (instances of
-# kMaxG: 8 and 24, chosen at launch)
-_KERNEL_MAX_G = 24
-
 
 def _padded_row_width(width: int) -> int:
     """The JAX package sizes tables with rows padded to 128-lane TPU tiles;
@@ -506,7 +502,8 @@ def integrate_bricks(table2d, bnd_y, bnd_x, bnd_z, d2, ray_len, re_local,
     (N,); the axes are host arrays. CPU tensors run
     :func:`integrate_bricks_ref`; CUDA tensors launch kernel B2 (a float32
     table) or K4 (an int16 table), which take contiguous float32 operands
-    and plans of at most ``_KERNEL_MAX_G`` samples a group.
+    and a plan whose launch shape ``kernels.brick_launch_shape`` can size
+    (it raises for one it cannot).
     """
     ys_np, xs_np, zs_np = (np.asarray(a, dtype=np.float64) for a in (ys, xs, zs))
     ny, nx, nz = ys_np.size, xs_np.size, zs_np.size
@@ -535,9 +532,16 @@ def integrate_bricks(table2d, bnd_y, bnd_x, bnd_z, d2, ray_len, re_local,
             or not all(a.is_contiguous() for a in (table2d, *ops))):
         raise ValueError('integrate_bricks: the CUDA kernels take a contiguous float32 or int16 '
                          'table and contiguous float32 operands')
-    if not 1 <= plan.G <= _KERNEL_MAX_G or ny < 2 or nx < 2:
-        raise ValueError(f'integrate_bricks: G={plan.G} (max {_KERNEL_MAX_G}) on a '
-                         f'{ny}x{nx} grid is outside what the kernels take')
+    if (plan.G < 1 or ny < 2 or nx < 2 or plan.wy < 2 or plan.wx < 2
+            or not 2 <= plan.planes <= kernels.BRICK_MAX_PLANES):
+        raise ValueError(f'integrate_bricks: G={plan.G}, a {plan.planes}x{plan.wy}x{plan.wx} '
+                         f'brick on a {ny}x{nx} grid is outside what the kernels take')
+    # the kernels index rows in 32 bits and copy (wet, hydro) pairs
+    if table2d.shape[0] >= 2**31 or table2d.data_ptr() % (2 * table2d.element_size()):
+        raise ValueError('integrate_bricks: the kernels take fewer than 2^31 table rows, '
+                         'aligned to a (wet, hydro) pair')
+    threads, smem = kernels.brick_launch_shape(plan.wy, plan.wx, table2d.element_size(), plan.G,
+                                               plan.anchor.size)
     # the kernels index with these: check them on the host
     idx_ok = ((plan.lvl >= 0).all() and (plan.lvl + 1 <= L).all()
               and (plan.wa_lvl >= 0).all() and (plan.wa_lvl < L).all()
@@ -566,7 +570,7 @@ def integrate_bricks(table2d, bnd_y, bnd_x, bnd_z, d2, ray_len, re_local,
         y_uniform=y_step is not None,
         x_lo=float(xs_np[0]), x_hi=float(xs_np[-1]), x_step=x_step or 0.0,
         x_uniform=x_step is not None,
-        z_lo=float(zs_np[0]), z_hi=float(zs_np[-1]), z_clip=z_clip)
+        z_lo=float(zs_np[0]), z_hi=float(zs_np[-1]), z_clip=z_clip, threads=threads, smem=smem)
     return out[0], out[1]
 
 

@@ -10,11 +10,14 @@ Each launcher takes device pointers and torch's current stream, allocates
 nothing, and returns ``cudaGetLastError()``; a non-zero code raises here.
 ``LAUNCHES`` counts the launches of each kernel (one per launcher call that
 reached the kernel), so a caller can show that a run went through them.
+``nvcc`` runs with ``-Xptxas -v``; :func:`ptxas_resources` reads each
+kernel's registers and spills from the build's log.
 """
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -25,7 +28,20 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parents[2] / 'build' / 'kernels'
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
-              '-Xcompiler', '-fPIC']
+              '-Xcompiler', '-fPIC', '-Xptxas', '-v']
+
+# Shared memory of one Hopper SM (sm_90): what a block may take as dynamic
+# shared memory, what an SM holds, and what the runtime keeps per resident block
+SMEM_BLOCK_MAX = 232_448
+SMEM_SM = 233_472
+SMEM_BLOCK_RESERVED = 1_024
+# kernels B2/K4 (csrc/brick_integrate.cu): warps a block (up to its launch
+# bound of 512 threads) and the resident warps an SM past which registers,
+# not shared memory, decide the occupancy
+BRICK_WARPS = (4, 8, 16)
+BRICK_TARGET_WARPS = 32
+# planes a brick row may have in B2/K4: the ring's slot map keeps 2 bits a plane
+BRICK_MAX_PLANES = 16
 
 LAUNCHES = {'ztd_totals': 0, 'brick_integrate': 0, 'brick_integrate_i16': 0,
             'window_integrate': 0, 'probe_load': 0, 'probe_bitcast_i16_bf16': 0,
@@ -36,6 +52,7 @@ PROBE_DTYPES = {'bf16': torch.bfloat16, 'f16': torch.float16, 'i16': torch.int16
 
 _lib = None
 build_seconds = None   # wall time of the build in this process (None: loaded a cached .so)
+BUILD_LOG = {}         # nvcc's messages per source, from the build in this process
 
 
 def reset_launch_counts() -> None:
@@ -83,6 +100,7 @@ def build() -> Path:
     errors = []
     for src, _, proc in jobs:
         _, err = proc.communicate()
+        BUILD_LOG[src.name] = err
         if proc.returncode != 0:
             errors.append(f'{src.name} ({proc.returncode}):\n{err}')
     tmp = out.with_suffix(f'.{os.getpid()}.tmp')
@@ -99,6 +117,66 @@ def build() -> Path:
             path.unlink(missing_ok=True)
     build_seconds = time.perf_counter() - t0
     return out
+
+
+def ptxas_resources(source: str) -> dict:
+    """Per kernel function of ``source`` (its mangled name), the registers,
+    spill stores/loads and stack bytes that ``ptxas -v`` reported in this
+    process's build; empty when the library came from the cache."""
+    res, fn = {}, None
+    for line in BUILD_LOG.get(source, '').splitlines():
+        m = re.search(r'Function properties for (\S+)', line)
+        if m:
+            fn = m.group(1)
+            continue
+        m = re.search(r'(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads',
+                      line)
+        if m and fn is not None:
+            res.setdefault(fn, {}).update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                                          spill_loads=int(m.group(3)))
+        m = re.search(r'Used (\d+) registers', line)
+        if m and fn is not None:
+            res.setdefault(fn, {})['registers'] = int(m.group(1))
+    return res
+
+
+def brick_plan_bytes(n_groups: int, G: int) -> int:
+    """Shared bytes of kernel B2/K4's plan: 10 words a slot and an anchor a
+    group, rounded up to 16."""
+    return -(-(n_groups * G * 40 + n_groups * 4) // 16) * 16
+
+
+def brick_slot_bytes(wy: int, wx: int, itemsize: int) -> int:
+    """Shared bytes of one ray's ring in B2/K4: four brick planes of wy x wx
+    (wet, hydro) pairs, padded to an odd number of pairs."""
+    return (4 * wy * wx + 1) * 2 * itemsize
+
+
+def brick_launch_shape(wy: int, wx: int, itemsize: int, G: int, n_groups: int) -> tuple:
+    """(threads a block, dynamic shared bytes a block) of kernel B2 (itemsize
+    4) or K4 (itemsize 2) for a plan of ``n_groups`` x ``G`` slots.
+
+    A block holds the plan and, per warp, the rings of its 32 rays. Of
+    ``BRICK_WARPS`` it takes the block size that keeps the most warps
+    resident on an SM by shared memory (counted up to
+    ``BRICK_TARGET_WARPS``; the smaller block on a tie). Raises ValueError
+    when not even the smallest block fits ``SMEM_BLOCK_MAX``.
+    """
+    warp_bytes = 32 * brick_slot_bytes(wy, wx, itemsize)
+    plan = brick_plan_bytes(n_groups, G)
+    best = None
+    for w in BRICK_WARPS:
+        smem = plan + w * warp_bytes
+        if smem > SMEM_BLOCK_MAX:
+            break
+        resident = min(SMEM_SM // (smem + SMEM_BLOCK_RESERVED) * w, BRICK_TARGET_WARPS)
+        if best is None or resident > best[0]:
+            best = (resident, 32 * w, smem)
+    if best is None:
+        raise ValueError(f'brick integrate: a {wy}x{wx} window of {itemsize}-byte values with a '
+                         f'{n_groups}x{G} plan needs {plan + BRICK_WARPS[0] * warp_bytes} bytes of '
+                         f'shared memory a block, more than {SMEM_BLOCK_MAX}')
+    return best[1], best[2]
 
 
 def lib() -> ctypes.CDLL:
@@ -119,6 +197,7 @@ def lib() -> ctypes.CDLL:
             f, f, f, i,          # y lo, hi, step, uniform
             f, f, f, i,          # x lo, hi, step, uniform
             f, f, i,             # z lo, hi, z_clip
+            i, ll,               # threads, dynamic shared bytes a block
             p]                   # stream
         so.brick_integrate_launch.restype = i
         so.brick_integrate_i16_launch.argtypes = [
@@ -131,6 +210,7 @@ def lib() -> ctypes.CDLL:
             f, f, f, i,          # y lo, hi, step, uniform
             f, f, f, i,          # x lo, hi, step, uniform
             f, f, i,             # z lo, hi, z_clip
+            i, ll,               # threads, dynamic shared bytes a block
             p]                   # stream
         so.brick_integrate_i16_launch.restype = i
         so.brick_contract_launch.argtypes = [p, p, p, p, p, ll, i, i, i, i, p]
@@ -196,9 +276,10 @@ def launch_ztd_totals(t, p, e, dz, wet, hyd, k1, k2, k3) -> None:
 def launch_brick_integrate(table, bnd_y, bnd_x, bnd_z, d2, ray_len, re, plan_i, plan_f,
                            anchor, y_axis, x_axis, out, deq=None, *, G, planes, wy, wx,
                            y_lo, y_hi, y_step, y_uniform, x_lo, x_hi, x_step, x_uniform,
-                           z_lo, z_hi, z_clip) -> None:
+                           z_lo, z_hi, z_clip, threads, smem) -> None:
     """Kernel B2 on a float32 table, or K4 on an int16 table with ``deq``
-    (arguments checked by the caller)."""
+    (arguments checked by the caller), in the launch shape ``threads``,
+    ``smem`` of :func:`brick_launch_shape`."""
     n = bnd_y.shape[1]
     n_groups = anchor.shape[0]
     ny, nx = y_axis.shape[0], x_axis.shape[0]
@@ -209,7 +290,7 @@ def launch_brick_integrate(table, bnd_y, bnd_x, bnd_z, d2, ray_len, re, plan_i, 
         _ptr(plan_i), _ptr(plan_f), _ptr(anchor), _ptr(y_axis), _ptr(x_axis), _ptr(out),
         *extra, n, n_groups, G, planes, wy, wx, ny, nx,
         y_lo, y_hi, y_step, int(y_uniform), x_lo, x_hi, x_step, int(x_uniform),
-        z_lo, z_hi, int(z_clip), _stream())
+        z_lo, z_hi, int(z_clip), threads, smem, _stream())
     _check(name, code)
     LAUNCHES[name] += 1
 

@@ -25,7 +25,7 @@ from raider_tpu_torch.delay import raytrace
 from raider_tpu_torch.delay.raytrace import (build_group_plan, integrate_bricks,
                                              integrate_bricks_ref, pack_cubes)
 from raider_tpu_torch.ops.ztd import ztd_totals, ztd_totals_ref
-from raider_tpu_torch.scripts import kernel_profile, probe_f16, window_ablation
+from raider_tpu_torch.scripts import brick_ablation, kernel_profile, probe_f16, window_ablation
 
 K1, K2, K3 = 0.776, 0.233, 3.75e3
 
@@ -247,6 +247,18 @@ def test_brick_kernel_rejects_float64(cuda):
         integrate_bricks(table.double(), *[r.double() for r in rays], plan, ys, xs, zs)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize('spec', [(17, 3, 3, 6), (7, 12, 12, 6)])
+def test_brick_kernel_rejects_what_it_cannot_stage(cuda, spec):
+    """More planes than the ring's slot map holds, or a window whose rings
+    do not fit a block's shared memory: the wrapper raises, nothing runs."""
+    table, rays, plan, ys, xs, zs = _brick_case(cuda, n_rays=64, spec=spec)
+    before = dict(kernels.LAUNCHES)
+    with pytest.raises(ValueError):
+        integrate_bricks(table, *rays, plan, ys, xs, zs)
+    assert kernels.LAUNCHES == before
+
+
 def _rel(a, b) -> float:
     ok = ~torch.isnan(b)
     return float(((a[ok] - b[ok]).abs() / b[ok].abs()).max())
@@ -461,3 +473,214 @@ def test_failed_build_raises_and_never_runs_a_twin(cuda, tmp_path, monkeypatch):
                                             sc['xs']))
     with pytest.raises(RuntimeError, match='nvcc failed'):
         kernel_profile.brick_group_merged(*ops, consts)
+
+
+# ------------------------------------------------ kernels B2/K4: staged spans
+def _profile_plan(spec):
+    """The grouped plan of ``spec`` over the kernel profile's full-size
+    geometry (its level chain and grid at 45 degrees zenith), without cubes."""
+    nz, ny, nx = kernel_profile.GRID
+    zs = -500.0 + 26500.0 * np.linspace(0.0, 1.0, nz) ** 1.4
+    ys, xs = np.linspace(30.0, 40.0, ny), np.linspace(-125.0, -115.0, nx)
+    dzv = np.diff(zs)
+    planes, wy, wx, gmax = spec
+    return build_group_plan((dzv * np.sqrt(2.0)).astype(np.float32), zs, dzv / 111000.0, ys, xs,
+                            zs, group_max=gmax, planes=planes, wy=wy, wx=wx)
+
+
+@pytest.mark.parametrize('itemsize', [4, 2])
+@pytest.mark.parametrize('spec', kernel_profile.SPECS)
+def test_brick_launch_shape_sizes_every_profile_spec(spec, itemsize):
+    """Whole warps within the kernel's launch bound, and shared memory for the
+    plan plus the rings of a warp's 32 rays, inside a block's limit."""
+    planes, wy, wx, _ = spec
+    plan = raytrace._pad_group_plan(_profile_plan(spec), raytrace._PLAN_BUCKET)
+    threads, smem = kernels.brick_launch_shape(wy, wx, itemsize, plan.G, plan.anchor.size)
+    assert threads % 32 == 0 and 128 <= threads <= 512
+    need = (kernels.brick_plan_bytes(plan.anchor.size, plan.G)
+            + threads // 32 * 32 * kernels.brick_slot_bytes(wy, wx, itemsize))
+    assert need <= smem <= kernels.SMEM_BLOCK_MAX
+    # an odd number of (wet, hydro) pairs a ring: the lanes' reads of one
+    # corner fall on distinct banks
+    assert (kernels.brick_slot_bytes(wy, wx, itemsize) // (2 * itemsize)) % 2 == 1
+    resident = kernels.SMEM_SM // (smem + kernels.SMEM_BLOCK_RESERVED) * threads // 32
+    assert resident >= (16 if wy * wx * itemsize <= 36 else 12)
+
+
+@pytest.mark.parametrize('case', ['wide_window', 'huge_plan'])
+def test_brick_launch_shape_raises_for_what_it_cannot_take(case):
+    args = dict(wide_window=(12, 12, 4, 6, 12), huge_plan=(3, 3, 4, 400, 200))[case]
+    with pytest.raises(ValueError, match='shared memory'):
+        kernels.brick_launch_shape(*args)
+
+
+def _bitwise(a, b):
+    """Equal NaN masks and the same bits elsewhere."""
+    assert torch.equal(torch.isnan(a), torch.isnan(b))
+    ok = ~torch.isnan(b)
+    assert torch.equal(a[ok], b[ok])
+
+
+def _integrate_both(table, rays, plan, ys, xs, zs):
+    """The kernel (counted) and the twin on one case; ``table`` may be a
+    (table, deq) pair."""
+    table, deq = table if isinstance(table, tuple) else (table, None)
+    name = 'brick_integrate' if deq is None else 'brick_integrate_i16'
+    before = kernels.LAUNCHES[name]
+    got = integrate_bricks(table, *rays, plan, ys, xs, zs, deq=deq)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[name] == before + 1
+    return got, integrate_bricks_ref(table, *rays, plan, ys, xs, zs, deq=deq)
+
+
+def _anchor_rows(plan, rays, ys, xs):
+    """(n_groups, N) the brick row each ray reads for each group, as the twin
+    locates it (-1 for an all-padding group)."""
+    from raider_tpu_torch.ops.interp import _locate
+
+    bnd_y, bnd_x = rays[0], rays[1]
+    ny, nx = len(ys), len(xs)
+    rows = torch.full((plan.anchor.size, bnd_y.shape[1]), -1, dtype=torch.int64,
+                      device=bnd_y.device)
+    for g in range(plan.anchor.size):
+        if plan.pad[g].all():
+            continue
+        ay = ax = None
+        for s in range(plan.G):
+            lv = int(plan.lvl[g, s])
+            f = torch.tensor(plan.frac[g, s], dtype=torch.float32, device=bnd_y.device)
+            iy = _locate(ys, bnd_y[lv] + f * (bnd_y[lv + 1] - bnd_y[lv]))[0]
+            ix = _locate(xs, bnd_x[lv] + f * (bnd_x[lv + 1] - bnd_x[lv]))[0]
+            ay = iy if ay is None else torch.minimum(ay, iy)
+            ax = ix if ax is None else torch.minimum(ax, ix)
+        rows[g] = (int(plan.anchor[g]) * ny + ay) * nx + ax
+    return rows
+
+
+def _spec_tables(sc, st, mode):
+    if mode == 'brick':
+        return st['table']
+    qw, qh, deq = raytrace._quantized_pair(sc['wet_d'], sc['hydro_d'])
+    return raytrace._pack_bricks(qw, qh, st['planes'], st['wy'], st['wx']), deq
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('mode', ['brick', 'brick_i16'])
+@pytest.mark.parametrize('n_rays', [1, 31, 33, 129, 1007])
+def test_brick_kernels_take_ragged_ray_counts(cuda, n_rays, mode):
+    """Fewer rays than a warp, and a last block and warp cut short."""
+    table, rays, plan, ys, xs, zs = _brick_case(cuda, n_rays=n_rays, mode=mode)
+    (w, h), (rw, rh) = _integrate_both(table, rays, plan, ys, xs, zs)
+    _bitwise(w, rw)
+    _bitwise(h, rh)
+    assert w.shape == (n_rays,) and torch.isfinite(w).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('mode', ['brick', 'brick_i16'])
+def test_brick_kernels_read_spans_at_every_alignment(cuda, mode):
+    """Spans start at every pair-aligned offset within a 128-byte line that
+    504-byte (f32) or 252-byte (int16) rows give; the kernel is exact on all."""
+    sc, st = _profile_case(cuda, (7, 3, 3, 6))
+    plan = st['plan']
+    table = _spec_tables(sc, st, mode)
+    tab = table[0] if isinstance(table, tuple) else table
+    isz, width, plane = tab.element_size(), tab.shape[1], 3 * 3 * 2
+    rows = _anchor_rows(plan, sc['rays'], sc['ys'], sc['xs'])
+    starts = set()
+    for g in range(plan.anchor.size):
+        for s in range(plan.G):
+            if not plan.pad[g, s]:
+                off = (rows[g] * width + int(plan.dzoff[g, s]) * plane) * isz % 128
+                starts.update(off.unique().tolist())
+    assert starts == set(range(0, 128, 2 * isz))
+    (w, h), (rw, rh) = _integrate_both(table, sc['rays'], plan, sc['ys'], sc['xs'], sc['zs'])
+    _bitwise(w, rw)
+    _bitwise(h, rh)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('mode', ['brick', 'brick_i16'])
+def test_brick_kernels_read_only_the_planes_a_sample_uses(cuda, mode):
+    """NaN in a plane of a ray's row that no sample of the group reads leaves
+    every ray as it was; NaN in a plane a sample reads makes that ray NaN."""
+    sc, st = _profile_case(cuda, (8, 4, 4, 24))
+    plan, ys, xs, zs, rays = st['plan'], sc['ys'], sc['xs'], sc['zs'], sc['rays']
+    table = _spec_tables(sc, st, mode)
+    tab, deq = table if isinstance(table, tuple) else (table, None)
+    poison = float('nan') if deq is None else raytrace._I16_NAN
+    plane = st['wy'] * st['wx'] * 2
+    clean = integrate_bricks(tab, *rays, plan, ys, xs, zs, deq=deq)
+    rows = _anchor_rows(plan, rays, ys, xs)
+    for g in range(plan.anchor.size):
+        used = {int(d) + k for d, p in zip(plan.dzoff[g], plan.pad[g]) if not p for k in (0, 1)}
+        unused = sorted(set(range(st['planes'])) - used)
+        if used and unused:
+            break
+    else:
+        pytest.fail('no group of the plan leaves a plane unread')
+    # a finite ray whose row in group g is no ray's row in another group
+    others = torch.cat([rows[:g], rows[g + 1:]])
+    i = next(i for i in range(rows.shape[1])
+             if torch.isfinite(clean[0][i]) and not (others == rows[g, i]).any())
+    row = int(rows[g, i])
+    bad = tab.clone()
+    bad[row, unused[0] * plane:(unused[0] + 1) * plane] = poison
+    got = integrate_bricks(bad, *rays, plan, ys, xs, zs, deq=deq)
+    for a, b in zip(got, clean):
+        _bitwise(a, b)
+    bad = tab.clone()
+    bad[row, min(used) * plane:(min(used) + 1) * plane] = poison
+    got = integrate_bricks(bad, *rays, plan, ys, xs, zs, deq=deq)
+    assert torch.isnan(got[0][i]) and torch.isnan(got[1][i])
+    other = rows[g] != row
+    for a, b in zip(got, clean):
+        _bitwise(a[other], b[other])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('mode', ['brick', 'brick_i16'])
+def test_brick_kernels_on_the_last_row_and_column(cuda, mode):
+    """Vertical rays on the grid's last row, last column and corner: the
+    last cell with fraction 1, in bounds, exact against the twin."""
+    def edge(rays):
+        bnd_y, bnd_x = rays[0], rays[1]
+        ys, xs = np.linspace(33.0, 34.0, 11), np.linspace(-118.0, -117.0, 12)
+        for i in range(12):
+            bnd_y[:, i], bnd_x[:, i] = ys[-1], xs[i]
+        for i in range(11):
+            bnd_y[:, 12 + i], bnd_x[:, 12 + i] = ys[i], xs[-1]
+
+    table, rays, plan, ys, xs, zs = _brick_case(cuda, n_rays=200, mutate=edge, mode=mode)
+    (w, h), (rw, rh) = _integrate_both(table, rays, plan, ys, xs, zs)
+    _bitwise(w, rw)
+    _bitwise(h, rh)
+    assert torch.isfinite(w[:23]).all() and torch.isfinite(h[:23]).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('mode', ['brick', 'brick_i16'])
+@pytest.mark.parametrize('spec', kernel_profile.SPECS)
+def test_brick_kernels_match_twins_on_every_profile_spec(cuda, spec, mode):
+    sc, st = _profile_case(cuda, spec, bad_rays=True)
+    table = _spec_tables(sc, st, mode)
+    (w, h), (rw, rh) = _integrate_both(table, sc['rays'], st['plan'], sc['ys'], sc['xs'],
+                                       sc['zs'])
+    _bitwise(w, rw)
+    _bitwise(h, rh)
+    assert torch.isnan(w).any() and not torch.isnan(w).all()
+
+
+@pytest.mark.parametrize('name', sorted(brick_ablation.ABLATIONS))
+def test_brick_ablations_apply_to_the_kernel_source(name):
+    """Each ablation of scripts/brick_ablation.py still finds the one line of
+    csrc/brick_integrate.cu it replaces."""
+    src = (kernels.CSRC / 'brick_integrate.cu').read_text()
+    old, new = brick_ablation.ABLATIONS[name]
+    out = brick_ablation.ablated_source(name)
+    assert out != src and out.count(new) == 1 and old not in out
+
+
+def test_brick_ablation_needs_the_card():
+    with pytest.raises(ValueError, match='CUDA'):
+        brick_ablation.run('cpu')
