@@ -9,8 +9,13 @@ Phases, each printing one line; any failure exits non-zero:
      the torch and CUDA versions and both TF32 flags (set off).
   1. build: compiles the CUDA kernels in raider_tpu_torch/csrc/ with nvcc.
   2. kernels vs their plain-torch twins on the card, at the main path's
-     shapes: ZTD totals (B1) on seeded 51x400x400 cubes, the brick
-     integrate (B2) on a 51x400x400 table with ~1.2M synthetic slant rays.
+     shapes: ZTD totals (B1) on seeded 51x400x400 cubes in both layouts it
+     reads ((z, y, x) rows, and the weather model's (y, x, z) columns) and
+     on columns of the HRRR CONUS grid 51x1059x1799 (cubes drawn on the
+     card), bit for bit (B1's ms is its call's CUDA-event time, as for
+     every kernel, and its device_ms the kernel's time in a torch.profiler
+     trace: host work is most of a call); the brick integrate (B2) on a
+     51x400x400 table with ~1.2M synthetic slant rays.
   3. main path, through the user entry points: a synthetic HRRR-sized
      weather model (50 native levels, 400x400) processed by
      ``WeatherModel.load(device='cuda')``, then ``tropo_delay`` for a zenith
@@ -18,7 +23,8 @@ Phases, each printing one line; any failure exits non-zero:
      kernel launch counts of this phase must be >= 1, the cubes mostly
      finite, and a 64x64 sub-grid of the raytraced 0 m slice must match a
      plain-torch recomputation; then B2 is timed on the whole 0 m slice's
-     coherent pixel rays, beside phase 2's incoherent ones.
+     coherent pixel rays, beside phase 2's incoherent ones, and the model's
+     ``_get_ztd`` (B1 on its own t, p, e) alone.
   4. the windowed path: the window ablation's scene (a 50x400x400 cube,
      1000x1000 coherent rays) through ``integrate_rays_windowed`` (kernel
      B3), which must take the batch; then B3 against its twin on the same
@@ -54,7 +60,6 @@ import time
 import numpy as np
 
 SEED = 0
-B1_TOL = 2e-6      # max relative difference, kernel B1 vs twin
 B2_TOL = 1e-5      # max relative difference, kernel B2 vs twin (finite rays)
 SUBGRID_TOL = 1e-5  # metres, raytraced 0 m slice vs twin recomputation
 BBOX = [18.5, 21.5, 3.5, 6.0]
@@ -62,6 +67,7 @@ HEIGHTS = [0.0, 500.0, 1500.0]
 # sizes: the benchmark headline's (bench.py:80-86)
 DEVICE = 'cuda'
 KERNEL_GRID = (51, 400, 400)     # phase 2 cubes (nz, ny, nx)
+ZTD_BIG_GRID = (51, 1059, 1799)  # phase 2: B1 on the HRRR CONUS grid
 N_RAYS = 1201 * 1001             # phase 2 rays, as many as the main path's pixels
 MODEL_GRID = (50, 400, 400)      # native levels, lat, lon of the weather model
 SPACING_M = 250.0                # output cube spacing: ~1.2M pixels over BBOX
@@ -172,33 +178,74 @@ def window_cells_used(torch, b) -> int:
     return int(seen.sum())
 
 
+def ztd_cubes(torch, grid, layout: str):
+    """B1's t, p, e as (nz, ny, nx) cubes drawn on the card: contiguous
+    (z, y, x) rows, or the (z, y, x) views of contiguous (y, x, z) columns
+    (the weather model's layout); and the level heights."""
+    nz, ny, nx = grid
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(SEED)
+    shape = (nz, ny, nx) if layout == 'rows' else (ny, nx, nz)
+    fields = [lo + (hi - lo) * torch.rand(shape, generator=gen, device=DEVICE)
+              for lo, hi in ((200.0, 310.0), (1e3, 1.05e5), (1.0, 4000.0))]
+    if layout == 'columns':
+        fields = [torch.movedim(a, -1, 0) for a in fields]
+    zs = torch.as_tensor(-100.0 + 27100.0 * np.linspace(0.0, 1.0, nz) ** 1.4, device=DEVICE)
+    return fields + [zs]
+
+
+def phase_ztd(torch) -> dict:
+    """Phase 2, B1: the kernel against its twin, bit for bit, on both layouts
+    at the headline cube and on the model's columns at the CONUS grid. The
+    kernels line gets the main path's layout (columns, headline cube)."""
+    from raider_tpu_torch.ops.ztd import ztd_totals, ztd_totals_ref
+    from raider_tpu_torch.scripts import cuda_ms, device_ms
+
+    k1, k2, k3 = 0.776, 0.233, 3.75e3
+    recs, errs = {}, []
+    for grid, layout in ((KERNEL_GRID, 'rows'), (KERNEL_GRID, 'columns'),
+                         (ZTD_BIG_GRID, 'columns')):
+        t, p, e, zs = ztd_cubes(torch, grid, layout)
+        w_k, h_k = ztd_totals(t, p, e, zs, k1, k2, k3)
+        w_r, h_r = ztd_totals_ref(t, p, e, zs, k1, k2, k3)
+        err = float(max((w_k - w_r).abs().max(), (h_k - h_r).abs().max()))
+        equal = bool(torch.equal(w_k, w_r) and torch.equal(h_k, h_r))
+        del w_k, h_k, w_r, h_r
+        cells = int(np.prod(grid))
+        r = dict(max_abs_err=err, ms=cuda_ms(lambda: ztd_totals(t, p, e, zs, k1, k2, k3)),
+                 device_ms=device_ms(lambda: ztd_totals(t, p, e, zs, k1, k2, k3),
+                                     'ztd_totals_kernel')[1],
+                 plain_ms=cuda_ms(lambda: ztd_totals_ref(t, p, e, zs, k1, k2, k3)),
+                 **bound(5 * 4 * cells, 14 * cells))
+        r['bound_share'] = r['bound_ms'] / r['device_ms'] if r['device_ms'] else None
+        name = f'{"x".join(map(str, grid))} {layout}'
+        say(f'B1 ztd_totals {name}: max-abs {err:.3e} m, equal to the twin {equal}; call '
+            f'{r["ms"]:.3f} ms, kernel {r["device_ms"]} ms on the device, twin '
+            f'{r["plain_ms"]:.3f} ms; bound {r["bound_ms"]:.4f} ms ({r["bound_by"]}), '
+            f'{r["bound_share"]} of the device time')
+        check(equal and err == 0.0, f'B1 differs from its twin on {name}: max-abs {err}')
+        check(r['device_ms'] is not None, 'the profiler trace holds no device time for B1')
+        recs[name] = r
+        errs.append(err)
+        del t, p, e
+        torch.cuda.empty_cache()
+    head = recs[f'{"x".join(map(str, KERNEL_GRID))} columns']
+    return dict(head, max_abs_err=max(errs), library_ms=None, layout='columns', layouts=recs)
+
+
 def phase_kernels(torch, kernels):
     """Phase 2: both kernels against their twins at the main path's shapes."""
     from raider_tpu_torch.delay.raytrace import (build_group_plan, integrate_bricks,
                                                  integrate_bricks_ref, pack_cubes)
-    from raider_tpu_torch.ops.ztd import ztd_totals, ztd_totals_ref
     from raider_tpu_torch.scripts import cuda_ms
 
+    b1 = phase_ztd(torch)
     rng = np.random.default_rng(SEED)
     dev = DEVICE
     nz, ny, nx = KERNEL_GRID
     zs = (-100.0 + 27100.0 * np.linspace(0.0, 1.0, nz) ** 1.4)
-    k1, k2, k3 = 0.776, 0.233, 3.75e3
-    t = torch.as_tensor(rng.uniform(200.0, 310.0, (nz, ny, nx)).astype(np.float32), device=dev)
-    p = torch.as_tensor(rng.uniform(1e3, 1.05e5, (nz, ny, nx)).astype(np.float32), device=dev)
-    e = torch.as_tensor(rng.uniform(1.0, 4000.0, (nz, ny, nx)).astype(np.float32), device=dev)
-    zs_d = torch.as_tensor(zs, device=dev)
-    w_k, h_k = ztd_totals(t, p, e, zs_d, k1, k2, k3)
-    w_r, h_r = ztd_totals_ref(t, p, e, zs_d, k1, k2, k3)
-    torch.cuda.synchronize()
-    b1_rel = max(max_rel(torch, w_k, w_r), max_rel(torch, h_k, h_r))
-    b1_abs = float(max((w_k - w_r).abs().max(), (h_k - h_r).abs().max()))
-    b1_ms = cuda_ms(lambda: ztd_totals(t, p, e, zs_d, k1, k2, k3))
-    b1_plain = cuda_ms(lambda: ztd_totals_ref(t, p, e, zs_d, k1, k2, k3))
-    say(f'B1 ztd_totals {nz}x{ny}x{nx}: max-rel {b1_rel:.3e} max-abs {b1_abs:.3e} m; '
-        f'kernel {b1_ms:.3f} ms, twin {b1_plain:.3f} ms')
-    check(b1_rel <= B1_TOL, f'B1 max-rel {b1_rel} > {B1_TOL}')
-    del t, p, e, w_k, h_k, w_r, h_r
+    # B2's scene as in earlier runs: skip the draws that B1's cubes took there
+    rng.bit_generator.advance(3 * nz * ny * nx)
 
     # B2: bench.py's synthetic slant rays (random start, azimuth, 25-45 deg
     # zenith), contiguous through the level chain, on an origin-shifted grid
@@ -244,23 +291,19 @@ def phase_kernels(torch, kernels):
     check(same_nan, 'B2 NaN masks differ from the twin')
     check(b2_rel <= B2_TOL, f'B2 max-rel {b2_rel} > {B2_TOL}')
     check(float(fin.float().mean()) > 0.99, 'B2 synthetic rays mostly NaN')
-    # bounds: B1 reads t, p, e and writes wet, hydro (~14 flops a cell); B2
-    # reads its ray operands, the table rows the rays use and the plan, and
-    # writes wet and hydro (~300 flops a sample)
-    cells = nz * ny * nx
-    b1_bound = bound(5 * 4 * cells, 14 * cells)
+    # bound: B2 reads its ray operands, the table rows the rays use and the
+    # plan, and writes wet and hydro (~300 flops a sample)
     n_rows = brick_rows_used(torch, plan, bnd_y, bnd_x, ys, xs)
     width = table.shape[1]
     n_samples = int((~plan.pad).sum()) * n_rays
     b2_bytes = 4 * n_rays * (3 * nz + 2 * (nz - 1) + 1 + 2) + 4 * width * n_rows
     b2_bound = bound(b2_bytes, 300 * n_samples)
     shape = brick_shape(kernels, plan, table, n_rays)
-    say(f'B1 bound {b1_bound}; B2 reads {n_rows} distinct table rows '
+    say(f'B2 reads {n_rows} distinct table rows '
         f'({4 * width * n_rows / 1e9:.3f} GB of the {table.numel() * 4 / 1e9:.3f} GB table), '
         f'{b2_bytes / 1e9:.3f} GB in all: bound {b2_bound}; launch {shape}')
     return {
-        'ztd_totals': dict(max_abs_err=b1_abs, ms=b1_ms, plain_ms=b1_plain, **b1_bound,
-                           library_ms=None),
+        'ztd_totals': b1,
         'brick_integrate': dict(max_abs_err=b2_abs, ms=b2_ms, plain_ms=b2_plain, **b2_bound,
                                 library_ms=None, **shape),
     }
@@ -318,14 +361,14 @@ def polar_orbit():
 
 def phase_main_path(torch, kernels, b2_incoherent_ms):
     """Phase 3: the main path through the user entry points; returns its
-    launch counts and B2's time on its 0 m slice."""
+    launch counts, B2's time on its 0 m slice and ``_get_ztd``'s times."""
     from raider_tpu_torch.delay import engine
     from raider_tpu_torch.delay.raytrace import (integrate_bricks, integrate_bricks_ref,
                                                  pack_cubes, slice_plan)
     from raider_tpu_torch.geodesy import get_Re
     from raider_tpu_torch.geometry import BoundingBox, Raytracing, Zenith
     from raider_tpu_torch.ops.interp import interp3d_points
-    from raider_tpu_torch.scripts import cuda_ms
+    from raider_tpu_torch.scripts import cuda_ms, device_ms
 
     when = dt.datetime(2020, 1, 1, 12, 0, 0)
     model = smoke_model_class()()
@@ -357,10 +400,15 @@ def phase_main_path(torch, kernels, b2_incoherent_ms):
     stages['raytrace_s'] = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # the model's ZTD step alone, B1 reading its contiguous (y, x, z) fields
+    ztd = dict(ms=cuda_ms(model._get_ztd))
+    ztd['device_ms'], ztd['kernel_device_ms'] = device_ms(model._get_ztd, 'ztd_totals_kernel')
 
     nzc = tuple(np.shape(ds_wm['wet'].data))
     say('main path stages (s): ' + ', '.join(f'{k} {v:.3f}' for k, v in stages.items())
-        + f'; weather cube {nzc}; peak device memory {peak_gb:.2f} GB; launches {launches}')
+        + f'; weather cube {nzc}; peak device memory {peak_gb:.2f} GB; launches {launches}; '
+        f'_get_ztd alone: {ztd["ms"]:.3f} ms (device: all kernels {ztd["device_ms"]} ms, '
+        f'B1 {ztd["kernel_device_ms"]} ms)')
     for name, ds in (('zenith', ds_z), ('raytraced', ds_r)):
         w = np.asarray(ds['wet'].data)
         h = np.asarray(ds['hydro'].data)
@@ -429,7 +477,7 @@ def phase_main_path(torch, kernels, b2_incoherent_ms):
     say(f'B2 on the 0 m slice of the main path ({lat.numel()} coherent pixel rays, '
         f'{plan.anchor.size} groups, launch {brick_shape(kernels, plan, table, lat.numel())}): '
         f'kernel {main_ms:.3f} ms; phase 2 ({N_RAYS} incoherent rays) {b2_incoherent_ms:.3f} ms')
-    return launches, main_ms
+    return launches, main_ms, ztd
 
 
 def phase_window(torch, kernels):
@@ -794,8 +842,10 @@ def main() -> int:
     say(f'ptxas, B2/K4 instances: {json.dumps(ptxas)}')
 
     measured = phase_kernels(torch, kernels)
-    launches, main_ms = phase_main_path(torch, kernels, measured['brick_integrate']['ms'])
+    launches, main_ms, ztd = phase_main_path(torch, kernels, measured['brick_integrate']['ms'])
     measured['brick_integrate']['main_path_ms'] = main_ms
+    measured['ztd_totals']['get_ztd'] = ztd
+    measured['ztd_totals']['ptxas'] = kernels.ptxas_resources('ztd_totals.cu')
     launches_w, b3 = phase_window(torch, kernels)
     launches_p, s4, s5 = phase_probes(torch, kernels)
     launches_k, prof = phase_profile(torch, kernels)

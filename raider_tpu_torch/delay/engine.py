@@ -129,6 +129,10 @@ def _get_delays_on_cube(datetime, wm: WeatherCube, weather_model_file, aoi, heig
     zpts = np.array(heights, dtype=np.float64)
     if not hasattr(aoi, 'xpts'):
         res = float(min(np.diff(wm.xs).mean(), np.diff(wm.ys).mean()))
+        if not wm.crs.is_geographic:
+            # a projected model's axes are in metres; the spacing is in
+            # degrees, at the 1e5 m a degree of the JAX package's rule
+            res /= 1e5
         aoi.set_output_spacing(ll_res=res)
         aoi.set_output_xygrid(crs)
 

@@ -185,7 +185,7 @@ def lib() -> ctypes.CDLL:
     if _lib is None:
         so = ctypes.CDLL(str(build()))
         p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-        so.ztd_totals_launch.argtypes = [p, p, p, p, p, p, i, ll, f, f, f, p]
+        so.ztd_totals_launch.argtypes = [p, p, p, p, p, p, i, ll, ll, ll, f, f, f, p]
         so.ztd_totals_launch.restype = i
         so.brick_integrate_launch.argtypes = [
             p,                   # table
@@ -263,12 +263,15 @@ def _ptr(t: torch.Tensor):
     return ctypes.c_void_p(t.data_ptr())
 
 
-def launch_ztd_totals(t, p, e, dz, wet, hyd, k1, k2, k3) -> None:
-    """Kernel B1 on (nz, ny, nx) float32 CUDA tensors (checked by the caller)."""
+def launch_ztd_totals(t, p, e, dz, wet, hyd, k1, k2, k3, *, stride_z, stride_col) -> None:
+    """Kernel B1 on (nz, ny, nx) float32 CUDA cubes t, p, e whose (z, column)
+    strides are ``stride_z``, ``stride_col`` (checked by the caller), into
+    contiguous wet and hyd. The launcher derives the launch shape and
+    refuses a level count that does not fit a block's shared memory."""
     nz = t.shape[0]
     ncol = t.numel() // nz
     code = lib().ztd_totals_launch(_ptr(t), _ptr(p), _ptr(e), _ptr(dz), _ptr(wet), _ptr(hyd),
-                                   nz, ncol, k1, k2, k3, _stream())
+                                   nz, ncol, stride_z, stride_col, k1, k2, k3, _stream())
     _check('ztd_totals', code)
     LAUNCHES['ztd_totals'] += 1
 

@@ -28,3 +28,29 @@ def cuda_ms(fn, reps: int = 5) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def device_ms(fn, kernel: str, launches: int = 1, reps: int = 5):
+    """(all kernels, the kernels whose name holds ``kernel``) device ms per
+    call of ``fn``, which launches that kernel ``launches`` times, from a
+    ``torch.profiler`` trace of ``reps`` calls after a warm-up; (None, None)
+    when three traces in a row miss some of its launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):   # a trace now and then comes back short of device events
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total = mine = 0.0
+        seen = 0
+        for ev in prof.key_averages():
+            total += ev.self_device_time_total
+            if kernel in ev.key:
+                mine += ev.self_device_time_total
+                seen += ev.count
+        if seen == reps * launches:
+            return total / reps / 1e3, mine / reps / 1e3
+    return None, None

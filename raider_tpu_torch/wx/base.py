@@ -323,17 +323,18 @@ class WeatherModel:
         self._lats = self._lats[index1:index2, index3:index4]
         self._xs = self._xs[index3:index4]
         self._ys = self._ys[index1:index2]
-        for name in ('_p', '_t', '_e', '_wet_refractivity', '_hydrostatic_refractivity'):
+        for name in ('_wet_refractivity', '_hydrostatic_refractivity'):
             setattr(self, name, getattr(self, name)[index1:index2, index3:index4, ...])
+        # t, p and e stay contiguous (y, x, z): kernel B1 reads them in place
+        for name in ('_p', '_t', '_e'):
+            setattr(self, name, getattr(self, name)[index1:index2, index3:index4, ...].contiguous())
 
     def _get_ztd(self) -> None:
         """Zenith total delay at every node, integrated from each level to the
         model top: kernel B1 (``ops.ztd.ztd_totals``) on CUDA, its twin on
-        the CPU. A kernel failure raises."""
-        def zyx(a):
-            return torch.movedim(a.to(torch.float32), -1, 0).contiguous()
-
-        wet_t, hyd_t = ztd_totals(zyx(self._t), zyx(self._p), zyx(self._e),
+        the CPU. B1 reads the contiguous (y, x, z) t, p and e through their
+        (z, y, x) views, without a copy. A kernel failure raises."""
+        wet_t, hyd_t = ztd_totals(*(torch.movedim(a, -1, 0) for a in (self._t, self._p, self._e)),
                                   torch.as_tensor(self._zs, dtype=torch.float32,
                                                   device=self._device),
                                   k1=float(self._k1), k2=float(self._k2), k3=float(self._k3))

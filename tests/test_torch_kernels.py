@@ -8,8 +8,8 @@ card and without jax:
 
 The kernels use round-to-nearest arithmetic in their twins' order of
 operations, so on NaN-free inputs they must agree with the twins exactly;
-the stated tolerances (B1 2e-6; B2, B3, K1-K4 1e-5 relative; S4 and S5
-exact) are the contract the smoke run holds them to.
+the stated tolerances (B2, B3, K1-K4 1e-5 relative; B1, S4 and S5 exact)
+are the contract the smoke run holds them to.
 """
 
 import os
@@ -25,7 +25,8 @@ from raider_tpu_torch.delay import raytrace
 from raider_tpu_torch.delay.raytrace import (build_group_plan, integrate_bricks,
                                              integrate_bricks_ref, pack_cubes)
 from raider_tpu_torch.ops.ztd import ztd_totals, ztd_totals_ref
-from raider_tpu_torch.scripts import brick_ablation, kernel_profile, probe_f16, window_ablation
+from raider_tpu_torch.scripts import (brick_ablation, kernel_profile, probe_f16, window_ablation,
+                                      ztd_layouts)
 
 K1, K2, K3 = 0.776, 0.233, 3.75e3
 
@@ -197,26 +198,86 @@ def test_brick_wrapper_rejects_bad_inputs(bad):
         integrate_bricks(table, *rays, plan, ys, xs, zs)
 
 
+def _in_layout(a, layout):
+    """An (nz, ny, nx) cube as contiguous (z, y, x) rows, or as the (z, y, x)
+    view of a contiguous (y, x, z) copy (the weather model's columns)."""
+    return a if layout == 'rows' else torch.movedim(torch.movedim(a, 0, -1).contiguous(), -1, 0)
+
+
+def test_ztd_layouts_script_on_cpu():
+    """The B1 measurement script's records on the CPU (the twin, no times),
+    the trimmed model's included."""
+    recs = ztd_layouts.run('cpu', [(6, 30, 40)], say=lambda s: None)
+    assert [r.get('layout') for r in recs] == ['rows', 'columns', None, None]
+    assert all(r['equal'] and r['max_abs_err'] == 0.0 and 'ms' not in r for r in recs[:2])
+    assert recs[2]['stage'] == '_get_ztd' and recs[2]['shape'] == [30, 40, 6]
+    assert recs[3]['stage'] == '_trimExtent + _get_ztd'
+    ny, nx, nz = recs[3]['shape']
+    assert 22 <= ny < 30 and 30 <= nx < 40 and nz == 6
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize('shape', [(51, 40, 130), (8, 8, 128), (5, 3, 7), (2, 1, 1)])
-def test_ztd_kernel_matches_twin(cuda, shape):
+@pytest.mark.parametrize('layout', ['rows', 'columns'])
+@pytest.mark.parametrize('shape', [(51, 40, 130), (137, 9, 31), (8, 8, 128), (16, 1, 1),
+                                   (5, 3, 7), (2, 1, 1), (51, 59, 99), (64, 3, 65), (65, 2, 3)])
+def test_ztd_kernel_matches_twin(cuda, shape, layout):
+    """Bit-identical to the twin on both layouts, including a column count
+    that is odd and not a multiple of a block's columns, and level counts
+    of one chunk (64) and of two, three chunks (65, 137)."""
     t, p, e, zs = _ztd_inputs(shape, device=cuda)
+    t, p, e = (_in_layout(a, layout) for a in (t, p, e))
     before = kernels.LAUNCHES['ztd_totals']
     w, h = ztd_totals(t, p, e, zs, K1, K2, K3)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES['ztd_totals'] == before + 1
+    assert w.is_contiguous() and h.is_contiguous() and w.shape == shape
     rw, rh = ztd_totals_ref(t, p, e, zs, K1, K2, K3)
+    assert torch.isfinite(rw).all() and torch.equal(w, rw) and torch.equal(h, rh)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('layout', ['rows', 'columns'])
+def test_ztd_kernel_poisons_one_column(cuda, layout):
+    """A NaN and an inf in one column poison that column as in the twin, and
+    no other."""
+    nz, ny, nx = 37, 5, 43
+    t, p, e, zs = _ztd_inputs((nz, ny, nx), device=cuda)
+    t[20, 3, 17] = float('nan')
+    p[30, 3, 17] = float('inf')
+    t, p, e = (_in_layout(a, layout) for a in (t, p, e))
+    w, h = ztd_totals(t, p, e, zs, K1, K2, K3)
+    rw, rh = ztd_totals_ref(t, p, e, zs, K1, K2, K3)
+    torch.cuda.synchronize()
     for a, b in ((w, rw), (h, rh)):
-        nz = b != 0
-        assert torch.equal(a[~nz], b[~nz])
-        assert float(((a[nz] - b[nz]).abs() / b[nz].abs()).max()) <= 2e-6
+        torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
+        bad = ~torch.isfinite(a)
+        assert bad[:, 3, 17].any()
+        bad[:, 3, 17] = False
+        assert not bad.any()
+    assert torch.isnan(w[:20, 3, 17]).all() and torch.isinf(h[21:30, 3, 17]).all()
 
 
 @pytest.mark.cuda
 def test_ztd_kernel_rejects_non_contiguous(cuda):
     t, p, e, zs = _ztd_inputs((4, 6, 8), device=cuda)
+    before = kernels.LAUNCHES['ztd_totals']
     with pytest.raises(ValueError):
         ztd_totals(t.transpose(1, 2), p.transpose(1, 2), e.transpose(1, 2), zs, K1, K2, K3)
+    cols = [_in_layout(a, 'columns') for a in (t, p, e)]
+    with pytest.raises(ValueError):
+        ztd_totals(*(a[:, 1:5, 2:7] for a in cols), zs, K1, K2, K3)
+    assert kernels.LAUNCHES['ztd_totals'] == before
+
+
+@pytest.mark.cuda
+def test_ztd_kernel_refuses_too_many_levels(cuda):
+    """A level count whose chunk buffers and steps exceed a block's shared
+    memory: the launcher refuses it, the wrapper raises, nothing counts."""
+    t, p, e, zs = _ztd_inputs((60_000, 1, 2), device=cuda)
+    before = kernels.LAUNCHES['ztd_totals']
+    with pytest.raises(RuntimeError, match='ztd_totals'):
+        ztd_totals(t, p, e, zs, K1, K2, K3)
+    assert kernels.LAUNCHES['ztd_totals'] == before
 
 
 @pytest.mark.cuda

@@ -28,6 +28,8 @@ from raider_tpu.geometry.los import Raytracing as JRay
 from raider_tpu.geometry.los import Zenith as JZen
 from raider_tpu_torch.convert import dataset_from_reference, orbit_from_reference
 from raider_tpu_torch.delay import engine as t_engine
+from raider_tpu_torch.geodesy import Geographic
+from raider_tpu_torch.geodesy.crs import CRS
 from raider_tpu_torch.geometry import BoundingBox, Raytracing, Zenith
 
 from tests.test_orbit import synthetic_orbit
@@ -75,6 +77,50 @@ def test_tropo_delay_matches_jax(wm_dataset, los, dtype):
         assert np.isfinite(a).all() and np.isfinite(b).all()
         assert np.max(np.abs(a - b)) <= TOL[dtype]
     assert np.mean(out['wet'].data) > (0.05 if los == 'raytracing' else 0.01)
+
+
+class _MetricPlateCarree(CRS):
+    """A projected CRS for the test: longitude and latitude at 1e5 m a degree."""
+
+    def forward(self, lon, lat):
+        return lon * 1e5, lat * 1e5
+
+    def inverse(self, x, y):
+        return x / 1e5, y / 1e5
+
+    def to_cf(self) -> dict:
+        return {'grid_mapping_name': 'metric_plate_carree'}
+
+
+def test_projected_model_output_spacing(wm_dataset):
+    """With no grid on the AOI, a projected model's mean axis step (metres)
+    becomes the output spacing at 1e5 m a degree, the JAX package's rule
+    (raider_tpu/delay/engine.py, _get_delays_on_cube); the zenith cube then
+    matches the same model on geographic axes at that spacing."""
+    wm = t_engine.WeatherCube(dataset_from_reference(wm_dataset), 'cpu')
+    wm.xs, wm.ys, wm.crs = wm.xs * 1e5, wm.ys * 1e5, _MetricPlateCarree()
+    assert not wm.crs.is_geographic
+    aoi = BoundingBox(BBOX)
+    zref = wm.zs.max() - 1
+    out = t_engine._get_delays_on_cube(T0, wm, None, aoi, HEIGHTS, Zenith(), Geographic(), zref,
+                                       torch.float64)
+    res = min(np.diff(wm.xs).mean(), np.diff(wm.ys).mean()) / 1e5
+    assert aoi.get_output_spacing() == res
+    assert abs(res - 0.25) < 1e-12
+
+    ref_aoi = BoundingBox(BBOX)
+    ref_aoi.set_output_spacing(ll_res=res)
+    ref_aoi.set_output_xygrid(Geographic())
+    ref = t_engine._get_delays_on_cube(T0, t_engine.WeatherCube(dataset_from_reference(wm_dataset),
+                                                                'cpu'),
+                                       None, ref_aoi, HEIGHTS, Zenith(), Geographic(), zref,
+                                       torch.float64)
+    for k in ('x', 'y'):
+        np.testing.assert_array_equal(out.coords[k].data, ref.coords[k].data)
+    for name in ('wet', 'hydro'):
+        a, b = np.asarray(out[name].data), np.asarray(ref[name].data)
+        assert a.shape == b.shape and a.shape[1] * a.shape[2] > 1
+        assert np.isfinite(a).all() and np.max(np.abs(a - b)) <= 1e-9
 
 
 _NO_JAX_SCRIPT = textwrap.dedent('''

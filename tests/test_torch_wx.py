@@ -131,6 +131,41 @@ def test_ztd_totals_match_jax(models, name):
     assert np.all(out[..., -1] == 0)
 
 
+def test_get_ztd_reads_the_fields_in_place(models, monkeypatch):
+    """After load (the grid trimmed), t, p and e are contiguous (y, x, z)
+    float32 cubes, and _get_ztd hands their (z, y, x) views to ztd_totals:
+    no transposing copy."""
+    _, t = models
+    fields = (t._t, t._p, t._e)
+    assert all(a.is_contiguous() and a.dtype == torch.float32 for a in fields)
+    seen, ztd_totals = [], t_base.ztd_totals
+
+    def spy(*args, **kwargs):
+        seen.extend(args[:3])
+        return ztd_totals(*args, **kwargs)
+
+    monkeypatch.setattr(t_base, 'ztd_totals', spy)
+    wet, hyd = t._wet_ztd, t._hydrostatic_ztd
+    t._get_ztd()
+    assert [a.data_ptr() for a in seen] == [a.data_ptr() for a in fields]
+    assert all(a.shape == torch.movedim(f, -1, 0).shape for a, f in zip(seen, fields))
+    assert torch.equal(t._wet_ztd, wet) and torch.equal(t._hydrostatic_ztd, hyd)
+
+
+@pytest.mark.parametrize('name', ['_t', '_p', '_e', '_wet_refractivity',
+                                  '_hydrostatic_refractivity'])
+def test_trim_copies_only_what_b1_reads(models, name):
+    """The fixture's bounds crop x (7 -> 6 columns): _trimExtent copies t, p
+    and e into contiguous (y, x, z) cubes, which B1 reads in place, and
+    leaves both refractivities as views of the whole grid; the values are
+    the JAX package's."""
+    j, t = models
+    a = getattr(t, name)
+    assert a.shape[1] == 6 and a.shape == np.shape(getattr(j, name))
+    assert a.is_contiguous() == (name in ('_t', '_p', '_e'))
+    np.testing.assert_allclose(a.numpy(), np.asarray(getattr(j, name)), rtol=1e-6)
+
+
 def test_to_dataset_schema_matches_write(models, tmp_path):
     """to_dataset holds what the JAX write() stores, under the same names."""
     from raider_tpu.io import read_nc

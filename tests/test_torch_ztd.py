@@ -2,8 +2,9 @@
 
 The twin runs the kernel's top-down float32 scan; the JAX kernel runs in
 Pallas interpret mode, as tests/test_pallas_ztd.py runs it. Max relative
-difference 2e-6: float32 sums of up to 33 positive terms, accumulated in
-the same order.
+difference 2e-6: float32 sums of up to 136 positive terms, accumulated in
+the same order. The port takes the cubes in (z, y, x) rows or as the
+(z, y, x) view of the weather model's (y, x, z) columns.
 """
 
 import numpy as np
@@ -14,7 +15,7 @@ import jax.numpy as jnp
 
 from raider_tpu.ops.pallas_ztd import ztd_totals as j_ztd_totals
 from raider_tpu_torch.ops.integrate import cumtrapz_from_top
-from raider_tpu_torch.ops.ztd import ztd_totals, ztd_totals_ref
+from raider_tpu_torch.ops.ztd import column_strides, ztd_totals, ztd_totals_ref
 
 K1, K2, K3 = 0.776, 0.233, 3.75e3
 SHAPES = [(33, 12, 150), (8, 8, 128), (5, 3, 7)]
@@ -26,6 +27,17 @@ def _inputs(shape):
     p = rng.uniform(1e3, 1e5, shape).astype(np.float32)
     e = rng.uniform(1, 1000, shape).astype(np.float32)
     zs = np.sort(rng.uniform(-500, 25000, shape[0])).astype(np.float32)
+    return t, p, e, zs
+
+
+def _column_inputs(shape):
+    """Seeded (y, x, z) cubes of an (nz, ny, nx) grid, and the level heights."""
+    nz, ny, nx = shape
+    rng = np.random.default_rng(5)
+    t = rng.uniform(220, 300, (ny, nx, nz)).astype(np.float32)
+    p = rng.uniform(1e3, 1e5, (ny, nx, nz)).astype(np.float32)
+    e = rng.uniform(1, 1000, (ny, nx, nz)).astype(np.float32)
+    zs = np.sort(rng.uniform(-500, 25000, nz)).astype(np.float32)
     return t, p, e, zs
 
 
@@ -88,4 +100,49 @@ def test_wrapper_rejects_bad_inputs(bad):
     else:
         zs = zs[:-1]
     with pytest.raises(ValueError):
+        ztd_totals(t, p, e, zs, K1, K2, K3)
+
+
+@pytest.mark.parametrize('shape', [(137, 3, 5), (51, 7, 13), (2, 1, 1)])
+def test_twin_on_columns_matches_pallas_interpret(shape):
+    """The twin on the (z, y, x) views of (y, x, z) cubes against the Pallas
+    kernel on the moved-axis arrays; the wrapper returns the same bits as
+    contiguous (z, y, x) cubes."""
+    t, p, e, zs = _column_inputs(shape)
+    jw, jh = j_ztd_totals(*(jnp.asarray(np.moveaxis(a, -1, 0)) for a in (t, p, e)),
+                          jnp.asarray(zs), K1, K2, K3, interpret=True)
+    cols = [torch.movedim(torch.as_tensor(a), -1, 0) for a in (t, p, e)]
+    # one column reads the same as one row
+    assert column_strides(cols[0]) == ((1, shape[0]) if shape[1] * shape[2] > 1 else (1, 1))
+    tw, th = ztd_totals_ref(*cols, torch.as_tensor(zs), K1, K2, K3)
+    assert tw.shape == shape and tw.is_contiguous() and th.is_contiguous()
+    assert _max_rel(tw.numpy(), jw) <= 2e-6
+    assert _max_rel(th.numpy(), jh) <= 2e-6
+    ww, wh = ztd_totals(*cols, torch.as_tensor(zs), K1, K2, K3)
+    assert ww.is_contiguous() and torch.equal(ww, tw) and torch.equal(wh, th)
+    rw, rh = ztd_totals(*(c.contiguous() for c in cols), torch.as_tensor(zs), K1, K2, K3)
+    assert torch.equal(rw, tw) and torch.equal(rh, th)
+
+
+def test_column_strides():
+    rows = torch.zeros(4, 6, 5)
+    assert column_strides(rows) == (30, 1)
+    assert column_strides(torch.movedim(torch.zeros(6, 5, 4), -1, 0)) == (1, 4)
+    assert column_strides(rows.transpose(1, 2).contiguous().transpose(1, 2)) is None
+    assert column_strides(torch.zeros(8, 6, 5)[::2]) is None
+
+
+@pytest.mark.parametrize('bad', ['swapped_yx', 'cropped_columns', 'mixed'])
+def test_wrapper_rejects_other_layouts(bad):
+    """Neither rows nor columns (or t, p, e in different layouts): the wrapper
+    raises on every device rather than copy."""
+    t, p, e, zs = (torch.as_tensor(a) for a in _inputs((6, 4, 5)))
+    if bad == 'swapped_yx':
+        t, p, e = (a.transpose(1, 2).contiguous().transpose(1, 2) for a in (t, p, e))
+    elif bad == 'cropped_columns':
+        t, p, e = (torch.movedim(a, 0, -1).contiguous()[1:3, 1:4].movedim(-1, 0)
+                   for a in (t, p, e))
+    else:
+        p = torch.movedim(torch.movedim(p, 0, -1).contiguous(), -1, 0)
+    with pytest.raises(ValueError, match='layout|contiguous'):
         ztd_totals(t, p, e, zs, K1, K2, K3)
