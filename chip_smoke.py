@@ -36,7 +36,8 @@ Phases, each printing one line; any failure exits non-zero:
      pallas (K1), pallas2 (K2), prodmerged (K3), prodpallas (B2) and prodi16
      (K4), then split, then spec (8,4,4,24) through pallas2 and prodpallas
      (24 samples a group); each passes the script's 4096-ray check. Then
-     K1-K4 against their twins on all rays, K4 also against B2.
+     K1-K4 against their twins on all rays (K1 bit for bit), K4 also
+     against B2.
   7. large cubes through ``integrate_rays`` with the mode ``pack_mode_for``
      picks: bench's midcube (50x640x640, brick_i16, kernel K4) against
      pack16, and the HRRR CONUS grid (50x1059x1799, pack16_i16) against
@@ -152,6 +153,17 @@ def brick_resources(kernels) -> dict:
         m = re.search(r'brick_integrate_kernelI([fs])Li(\d+)ELi(\d+)E', fn)
         if m:
             out[f"{'f32' if m.group(1) == 'f' else 'i16'} {m.group(2)}x{m.group(3)}"] = res
+    return out
+
+
+def contract_resources(kernels) -> dict:
+    """Registers and spills that ptxas reported for each K1 instance ('3x3',
+    '4x4'; '0x0' is the instance for any other window up to 8x8)."""
+    out = {}
+    for fn, res in kernels.ptxas_resources('brick_contract.cu').items():
+        m = re.search(r'brick_contract_kernelILi(\d+)ELi(\d+)E', fn)
+        if m:
+            out[f'{m.group(1)}x{m.group(2)}'] = res
     return out
 
 
@@ -623,12 +635,17 @@ def phase_profile(torch, kernels):
     consts = kp.group_consts(ys, xs, zs, wy, wx)
     out = {}
 
-    def hold(name, ops, kernel, twin, n_bytes, flops):
+    def hold(name, ops, kernel, twin, n_bytes, flops, exact=False):
         got = [kernel(*o) for o in ops]
         want = [twin(*o) for o in ops]
         torch.cuda.synchronize()
         # K1 returns (wet, hydro), K2/K3 a (2, N) part: both iterate as two rows
-        rel, err, same = compare(torch, [t for p in got for t in p], [t for p in want for t in p])
+        got = [t for p in got for t in p]
+        want = [t for p in want for t in p]
+        rel, err, same = compare(torch, got, want)
+        if exact:   # bit for bit, inf included, beside equal NaN masks
+            check(all(kp.same_bits(a, b) for a, b in zip(got, want)),
+                  f'{name} is not bit-identical to its twin (max-abs {err})')
         ms = cuda_ms(lambda: [kernel(*o) for o in ops])
         plain = cuda_ms(lambda: [twin(*o) for o in ops])
         b = bound(n_bytes, flops)
@@ -642,8 +659,12 @@ def phase_profile(torch, kernels):
                                                           ys, xs, zs)]
     hold('brick_contract', ops, kp.brick_contract, kp.contract_ref,
          sum(4 * (o[0].numel() + o[1].numel() + 2 * n) for o in ops),
-         sum(n * o[0].shape[1] * (12 * len(o[2]) + 6) for o in ops))
-    out['brick_contract']['variant_ms'] = timed[(7, 3, 3, 6), 'pallas']
+         sum(n * o[0].shape[1] * (12 * len(o[2]) + 6) for o in ops), exact=True)
+    threads, smem = kernels.brick_contract_shape(max(len(o[2]) for o in ops), planes, wy, wx)
+    out['brick_contract'].update(variant_ms=timed[(7, 3, 3, 6), 'pallas'], threads=threads,
+                                 smem_bytes=smem, ptxas=contract_resources(kernels))
+    say(f'brick_contract launch: {threads} threads, {smem} shared bytes a block (at the '
+        f'largest group); ptxas {json.dumps(out["brick_contract"]["ptxas"])}')
     del ops
     ops = [o + (consts,) for o in kp.rows_inputs(st['table'], rays, groups, ys, xs)]
     hold('brick_group_rows', ops, kp.brick_group_rows, kp.group_rows_ref,

@@ -215,6 +215,8 @@ def lib() -> ctypes.CDLL:
         so.brick_integrate_i16_launch.restype = i
         so.brick_contract_launch.argtypes = [p, p, p, p, p, ll, i, i, i, i, p]
         so.brick_contract_launch.restype = i
+        so.brick_contract_shape.argtypes = [i, i, i, i, ctypes.POINTER(i), ctypes.POINTER(ll)]
+        so.brick_contract_shape.restype = i
         so.brick_group_rows_launch.argtypes = [
             p, p, p, p, p, p, p,  # brickT, by, bx, bz, d2, rl, aux
             p, p, p,              # plan_i, plan_f, out
@@ -298,11 +300,27 @@ def launch_brick_integrate(table, bnd_y, bnd_x, bnd_z, d2, ray_len, re, plan_i, 
     LAUNCHES[name] += 1
 
 
+def brick_contract_shape(S: int, planes: int, wy: int, wx: int) -> tuple:
+    """(threads a block, dynamic shared bytes a block) of kernel K1 for a
+    group of ``S`` samples, as its launcher derives them; ValueError for a
+    spec the launcher refuses (more than 64 samples, a window past 8x8, or a
+    block that does not fit shared memory)."""
+    threads, smem = ctypes.c_int(0), ctypes.c_longlong(0)
+    code = lib().brick_contract_shape(S, planes, wy, wx, ctypes.byref(threads), ctypes.byref(smem))
+    if code != 0:
+        raise ValueError(f'brick_contract: no launch shape for {S} samples on a '
+                         f'{planes}x{wy}x{wx} brick (CUDA error {code})')
+    return threads.value, smem.value
+
+
 def launch_brick_contract(brick, scal, dzos, out_w, out_h, *, planes, wy, wx) -> None:
-    """Kernel K1 on one group (arguments checked by the caller)."""
+    """Kernel K1 on one group (arguments checked by the caller; ``dzos`` the
+    samples' z-plane offsets as Python ints, passed with the launch); the
+    launcher derives the launch shape and refuses a spec that does not fit."""
     n = brick.shape[0]
-    code = lib().brick_contract_launch(_ptr(brick), _ptr(scal), _ptr(dzos), _ptr(out_w),
-                                       _ptr(out_h), n, dzos.shape[0], planes, wy, wx, _stream())
+    dz = (ctypes.c_int * len(dzos))(*dzos)
+    code = lib().brick_contract_launch(_ptr(brick), _ptr(scal), dz, _ptr(out_w), _ptr(out_h),
+                                       n, len(dzos), planes, wy, wx, _stream())
     _check('brick_contract', code)
     LAUNCHES['brick_contract'] += 1
 

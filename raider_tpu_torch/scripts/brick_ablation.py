@@ -12,7 +12,8 @@ profile's scene (1M incoherent rays, spec (7,3,3,6)).
     the ray's ring: the position math, the anchors and the copies.
 
 An ablated source is written, beside copies of the other sources, under
-``build/ablation/<name>/csrc`` and built there like the library. The ablated
+``build/ablation/brick_integrate/<name>/csrc`` and built there like the
+library. The ablated
 builds compute wrong numbers on purpose: only this script loads them, and
 it restores the library afterwards. One JSON line per build and table (f32
 for B2, int16 for K4): CUDA-event ms (median of 5 after a warm-up) and the
@@ -45,23 +46,24 @@ ABLATIONS = {
 }
 
 
-def ablated_source(name: str) -> str:
-    """The kernel source with ablation ``name`` applied; raises if the line it
-    replaces is not in the source exactly once."""
-    src = (kernels.CSRC / SOURCE).read_text()
-    old, new = ABLATIONS[name]
+def ablated_source(name: str, source: str = SOURCE, ablations=None) -> str:
+    """``source`` with ablation ``name`` of ``ablations`` (default: this
+    script's) applied; raises if the line it replaces is not in the source
+    exactly once."""
+    src = (kernels.CSRC / source).read_text()
+    old, new = (ABLATIONS if ablations is None else ablations)[name]
     if src.count(old) != 1:
-        raise RuntimeError(f'ablation {name!r}: its line is not in {SOURCE} exactly once')
+        raise RuntimeError(f'ablation {name!r}: its line is not in {source} exactly once')
     return src.replace(old, new)
 
 
 @contextlib.contextmanager
-def library_from(csrc, build_dir):
+def library_from(csrc, build_dir, source: str = SOURCE):
     """The kernel library built from ``csrc`` into ``build_dir`` for the
     duration of the block; the default library afterwards."""
     saved = kernels.CSRC, kernels.BUILD_DIR, kernels._lib
     kernels.CSRC, kernels.BUILD_DIR, kernels._lib = csrc, build_dir, None
-    kernels.BUILD_LOG.pop(SOURCE, None)
+    kernels.BUILD_LOG.pop(source, None)
     try:
         kernels.lib()
         yield
@@ -69,15 +71,16 @@ def library_from(csrc, build_dir):
         kernels.CSRC, kernels.BUILD_DIR, kernels._lib = saved
 
 
-def _build_tree(name: str):
-    """(csrc, build dir) of build ``name``: the library's own for 'kernel'."""
+def build_tree(name: str, source: str = SOURCE, ablations=None):
+    """(csrc, build dir) of build ``name`` of ``source``: the library's own
+    for 'kernel'."""
     if name == 'kernel':
         return kernels.CSRC, kernels.BUILD_DIR
-    root = kernels.BUILD_DIR.parent / 'ablation' / name
+    root = kernels.BUILD_DIR.parent / 'ablation' / source.split('.')[0] / name
     csrc = root / 'csrc'
     shutil.rmtree(csrc, ignore_errors=True)
     shutil.copytree(kernels.CSRC, csrc)
-    (csrc / SOURCE).write_text(ablated_source(name))
+    (csrc / source).write_text(ablated_source(name, source, ablations))
     return csrc, root / 'kernels'
 
 
@@ -95,7 +98,7 @@ def run(device='cuda', n_rays: int = kp.N_RAYS, grid=kp.GRID, seed: int = 0, say
     where = dict(device=str(dev), card=card(), n_rays=n_rays, spec=list(SPEC))
     records = []
     for name in ('kernel', *ABLATIONS):
-        with library_from(*_build_tree(name)):
+        with library_from(*build_tree(name)):
             res = kernels.ptxas_resources(SOURCE)
             for table_name, (table, dq) in tables.items():
                 fn = (lambda t=table, d=dq: integrate_bricks(t, *sc['rays'], st['plan'], sc['ys'],

@@ -3,9 +3,12 @@
 Counterpart of ``scripts/kernel_profile.py``, run as
 
     python -m raider_tpu_torch.scripts.kernel_profile [spec|split] [variant]
+    python -m raider_tpu_torch.scripts.kernel_profile contract [spec]
 
 ``spec`` is ``planes,wy,wx,group_max`` (default: every entry of ``SPECS``,
-then ``split``); ``split`` runs only the gather/arithmetic ablations. The
+then ``split``); ``split`` runs only the gather/arithmetic ablations;
+``contract`` times kernel K1 alone over the groups of ``spec`` (default
+7,3,3,6) and the ``pallas`` variant around it (:func:`contract_timing`). The
 scene is the script's own: 50x400x400 random wet/hydro cubes on absolute
 coordinates (lat 30-40, lon -125..-115) and 1,000,000 incoherent slant rays
 (random start, azimuth, 25-45 deg zenith), built in float64 on the device.
@@ -36,6 +39,7 @@ check and per timing, with the device and the card.
 """
 
 import functools
+import importlib
 import json
 import sys
 
@@ -184,9 +188,9 @@ def brick_contract(brick, scal, dzos, planes: int, wy: int, wx: int):
     if (brick.dtype != torch.float32 or scal.dtype != torch.float32
             or not (brick.is_contiguous() and scal.is_contiguous())):
         raise ValueError('brick_contract: the CUDA kernel takes contiguous float32 operands')
-    dz = torch.as_tensor(np.asarray(dzos, dtype=np.int32), device=brick.device)
     out = torch.empty((2, n), dtype=torch.float32, device=brick.device)
-    kernels.launch_brick_contract(brick, scal, dz, out[0], out[1], planes=planes, wy=wy, wx=wx)
+    kernels.launch_brick_contract(brick, scal, [int(d) for d in dzos], out[0], out[1],
+                                  planes=planes, wy=wy, wx=wx)
     return out[0], out[1]
 
 
@@ -722,7 +726,58 @@ def run(device='cuda', spec=None, variants=('prod',), n_rays: int = N_RAYS, grid
     return records
 
 
+def same_bits(a, b) -> bool:
+    """Equal NaN masks and equal values elsewhere, inf included."""
+    nan = torch.isnan(b)
+    return bool(torch.equal(torch.isnan(a), nan)) and bool(torch.equal(a[~nan], b[~nan]))
+
+
+def contract_timing(device='cuda', spec=(7, 3, 3, 6), n_rays: int = N_RAYS, grid=GRID,
+                    seed: int = 0, say=print, scene=None, profile=None) -> dict:
+    """Kernel K1 over every group of ``spec`` on the scene: the CUDA-event
+    ms of its calls over all groups (``k1_ms``, median of 5 after a warm-up),
+    the ``pallas`` variant's whole time around it (``variant_ms``: the torch
+    per-sample math and gathers plus K1), and K1 against its twin on every
+    group (max-abs over finite entries, equal NaN masks, bit-identical).
+    ``profile`` is the kernel-profile module whose scene, wrapper, twin and
+    variant run (default: this one); :func:`main` passes the one of the
+    package on the path, so this file run under another tree's package
+    (``PYTHONPATH``) times that tree's K1, and ``kernels`` in the record
+    names the kernel layer that ran. On CPU tensors the times are None.
+    Prints and returns one JSON record."""
+    kp = profile or sys.modules[__name__]
+    sc = scene if scene is not None else kp.build_scene(device, n_rays, grid, seed)
+    dev = sc['device']
+    st = kp.spec_setup(sc, spec)
+    planes, wy, wx = st['planes'], st['wy'], st['wx']
+    ops = [o + (planes, wy, wx) for o in kp.contract_inputs(st['table'], sc['rays'], st['groups'],
+                                                            wy, wx, sc['ys'], sc['xs'], sc['zs'])]
+    err, masks, exact = 0.0, True, True
+    for o in ops:
+        for a, b in zip(kp.brick_contract(*o), kp.contract_ref(*o)):
+            masks = masks and bool(torch.equal(torch.isnan(a), torch.isnan(b)))
+            exact = exact and same_bits(a, b)
+            fin = torch.isfinite(b)
+            if bool(fin.any()):
+                err = max(err, float((a[fin] - b[fin]).abs().max()))
+    fn = kp.make_pallas_fn(st['groups'], planes, wy, wx, sc['ys'], sc['xs'], sc['zs'])
+    rec = dict(mode='contract', spec=list(spec), n_groups=len(ops),
+               n_samples=st['plan'].n_points, n_rays=sc['rays'][0].shape[1],
+               k1_ms=_time(lambda: [kp.brick_contract(*o) for o in ops], dev),
+               variant_ms=_time(lambda: fn(st['table'], *sc['rays']), dev),
+               max_abs=err, nan_masks_equal=masks, bit_identical=exact,
+               kernels=kp.kernels.__file__, device=str(dev),
+               card=card() if dev.type == 'cuda' else None)
+    say(json.dumps(rec))
+    return rec
+
+
 def main() -> None:
+    if len(sys.argv) > 1 and sys.argv[1] == 'contract':
+        spec = tuple(int(v) for v in sys.argv[2].split(',')) if len(sys.argv) > 2 else (7, 3, 3, 6)
+        contract_timing(require_device('cuda'), spec, say=lambda s: print(s, flush=True),
+                        profile=importlib.import_module('raider_tpu_torch.scripts.kernel_profile'))
+        return
     spec = sys.argv[1] if len(sys.argv) > 1 else None
     variant = sys.argv[2] if len(sys.argv) > 2 else 'prod'
     if spec not in (None, 'split'):

@@ -31,6 +31,7 @@ import jax.numpy as jnp
 
 from raider_tpu.delay import raytrace as j_rt
 from raider_tpu_torch.scripts import kernel_profile as kp
+from _contract_cases import CASES, DZOS, SPEC as K1_SPEC, contract_case
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 GRID = (8, 40, 40)
@@ -254,3 +255,75 @@ def test_cpu_wrappers_run_the_twins(scene, setups):
     want = kp.contract_ref(brick, scal, dzos, st['planes'], st['wy'], st['wx'])
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+# ------------------------- kernel K1: the twin semantics its design relies on
+def _kind(v) -> str:
+    return 'nan' if bool(torch.isnan(v)) else ('inf' if bool(torch.isinf(v)) else 'finite')
+
+
+@pytest.mark.parametrize('ray', sorted(CASES))
+def test_contract_twin_poison_cases(ray):
+    """A non-finite wte or fz, or a NaN gy or gx, makes both of the twin's
+    sums NaN; gy at +-inf only zeroes a hat weight; a NaN or inf brick lane
+    poisons both sums even where no sample touches it; an inf on a touched
+    wet lane gives wet inf and hydro NaN (inf x 0)."""
+    brick, scal, dzos = contract_case()
+    w, h = kp.contract_ref(brick, scal, dzos, *K1_SPEC)
+    what, want = CASES[ray]
+    assert (_kind(w[ray]), _kind(h[ray])) == want, what
+    clean = [r for r in range(brick.shape[0]) if r not in CASES]
+    assert torch.isfinite(w[clean]).all() and torch.isfinite(h[clean]).all()
+
+
+def _touched_planes_only(brick, scal, dzos, planes, wy, wx):
+    """Kernel K1's scheme in torch: U(c) sums, in sample order, only the
+    samples whose planes dzo, dzo + 1 hold lane c (+0 where none does), and
+    a ray with a non-finite wte or fz, or a NaN gy or gx, is NaN."""
+    width = planes * wy * wx * 2
+    c = lambda v: torch.tensor(v, dtype=torch.float32)  # noqa: E731
+    lane = torch.arange(width, dtype=torch.float32)[None, :]
+    dzc = torch.floor(lane / c(wy * wx * 2.0))
+    r1 = lane - dzc * (wy * wx * 2.0)
+    dyc = torch.floor(r1 / c(wx * 2.0))
+    r2 = r1 - dyc * (wx * 2.0)
+    dxc = torch.floor(r2 / c(2.0))
+    fhyd = (r2 - 2.0 * dxc)[0]
+    U = torch.zeros_like(brick)
+    started = torch.zeros_like(lane, dtype=torch.bool)
+    poison = torch.zeros(brick.shape[0], dtype=torch.bool)
+    for s, dzo in enumerate(dzos):
+        gy, gx, fz, wte = (scal[:, 4 * s + i:4 * s + i + 1] for i in range(4))
+        poison |= (~torch.isfinite(wte) | ~torch.isfinite(fz) | gy.isnan() | gx.isnan())[:, 0]
+        on0, on1 = dzc == float(dzo), dzc == float(dzo + 1)
+        wz = torch.where(on0, 1.0 * (1.0 - fz) + 0.0 * fz, 0.0 * (1.0 - fz) + 1.0 * fz)
+        w = wte * wz * (1.0 - (gy - dyc).abs()).clamp_min(0.0) * (1.0 - (gx - dxc).abs()).clamp_min(0.0)
+        on = on0 | on1
+        U = torch.where(on & started, U + w, torch.where(on, w, U))
+        started = started | on
+    prod = brick * U
+    acc_w = torch.zeros(brick.shape[0])
+    acc_h = torch.zeros_like(acc_w)
+    for k in range(width):
+        acc_w = acc_w + prod[:, k] * (1.0 - fhyd[k])
+        acc_h = acc_h + prod[:, k] * fhyd[k]
+    nan = torch.tensor(float('nan'))
+    return torch.where(poison, nan, acc_w), torch.where(poison, nan, acc_h)
+
+
+@pytest.mark.parametrize('dzos', [DZOS, (5, 5, 0, 3, 3, 1), (2,)],
+                         ids=['production', 'unordered', 'one_sample'])
+@pytest.mark.parametrize('poison', [False, True])
+def test_contract_twin_needs_only_touched_planes(dzos, poison):
+    """Dropping every sample's terms outside its two planes (and writing NaN
+    for a poisoned ray) leaves the twin's outputs unchanged, bit for bit,
+    with equal NaN masks: what lets kernel K1 build U on the touched planes
+    only."""
+    brick, scal, dzos = contract_case(dzos=dzos, poison=poison)
+    got = _touched_planes_only(brick, scal, dzos, *K1_SPEC)
+    want = kp.contract_ref(brick, scal, dzos, *K1_SPEC)
+    for a, b in zip(got, want):
+        nan = torch.isnan(b)
+        assert torch.equal(torch.isnan(a), nan)
+        assert torch.equal(a[~nan], b[~nan])
+    assert bool(torch.isfinite(want[0]).any())

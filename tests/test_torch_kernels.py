@@ -8,7 +8,7 @@ card and without jax:
 
 The kernels use round-to-nearest arithmetic in their twins' order of
 operations, so on NaN-free inputs they must agree with the twins exactly;
-the stated tolerances (B2, B3, K1-K4 1e-5 relative; B1, S4 and S5 exact)
+the stated tolerances (B2, B3, K2-K4 1e-5 relative; B1, K1, S4 and S5 exact)
 are the contract the smoke run holds them to.
 """
 
@@ -25,8 +25,9 @@ from raider_tpu_torch.delay import raytrace
 from raider_tpu_torch.delay.raytrace import (build_group_plan, integrate_bricks,
                                              integrate_bricks_ref, pack_cubes)
 from raider_tpu_torch.ops.ztd import ztd_totals, ztd_totals_ref
-from raider_tpu_torch.scripts import (brick_ablation, kernel_profile, probe_f16, window_ablation,
-                                      ztd_layouts)
+from raider_tpu_torch.scripts import (brick_ablation, contract_ablation, kernel_profile, probe_f16,
+                                      window_ablation, ztd_layouts)
+from _contract_cases import CASES, SPEC as K1_SPEC, contract_case
 
 K1, K2, K3 = 0.776, 0.233, 3.75e3
 
@@ -456,9 +457,78 @@ def test_contract_kernel_matches_twin(cuda, spec, bad_rays):
         assert kernels.LAUNCHES['brick_contract'] == before + 1
         want = kernel_profile.contract_ref(brick, scal, dzos, st['planes'], st['wy'], st['wx'])
         for a, b in zip(got, want):
-            _same(a, b)
+            _bitwise(a, b)
         n += 1
     assert n == len(st['groups'])
+
+
+def _contract_both(brick, scal, dzos, spec=K1_SPEC):
+    before = kernels.LAUNCHES['brick_contract']
+    got = kernel_profile.brick_contract(brick, scal, dzos, *spec)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES['brick_contract'] == before + 1
+    want = kernel_profile.contract_ref(brick, scal, dzos, *spec)
+    for a, b in zip(got, want):
+        _bitwise(a, b)
+    return got
+
+
+@pytest.mark.cuda
+def test_contract_kernel_poison_cases(cuda):
+    """K1 bit for bit against its twin on hand-made poisoned rays: wte NaN,
+    fz +inf, gx NaN, gy +-inf (not poisoning), a NaN and an inf on brick
+    lanes no sample touches, an inf on a touched wet lane (hydro NaN)."""
+    brick, scal, dzos = contract_case(n=40, device=cuda)
+    w, h = _contract_both(brick, scal, dzos)
+    for ray, (what, want) in CASES.items():
+        kinds = tuple('nan' if bool(torch.isnan(v)) else 'inf' if bool(torch.isinf(v))
+                      else 'finite' for v in (w[ray], h[ray]))
+        assert kinds == want, what
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('n', [0, 1, 31, 65, 200])
+@pytest.mark.parametrize('dzos', [(3,), (5, 5, 0, 3, 3, 1)], ids=['one_sample', 'unordered'])
+@pytest.mark.parametrize('offset', [0, 1, 2], ids=['aligned16', 'aligned4', 'aligned8'])
+def test_contract_kernel_edge_shapes(cuda, n, dzos, offset):
+    """K1 bit for bit against its twin for S = 1, ray counts that do not
+    fill a block (and none), and a brick 4- or 8-byte aligned only (the
+    4- and 8-byte copy paths)."""
+    brick, scal, dzos = contract_case(n=n, seed=n, device=cuda, dzos=dzos, poison=n > 8)
+    buf = torch.empty(brick.numel() + offset, dtype=torch.float32, device=cuda)
+    view = buf[offset:].view(brick.shape)
+    view.copy_(brick)
+    w, h = _contract_both(view, scal, dzos)
+    assert w.shape == h.shape == (n,)
+
+
+@pytest.mark.cuda
+def test_contract_launch_shape(cuda):
+    """The launcher's shape: 64 rays a block at the production spec, and a
+    shape for the profile's (8, 4, 4) spec with 24 samples."""
+    assert kernels.brick_contract_shape(6, 7, 3, 3) == (64, 41760)
+    threads, smem = kernels.brick_contract_shape(24, 8, 4, 4)
+    assert threads in (32, 64, 128) and smem <= kernels.SMEM_BLOCK_MAX
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', ['too_many_samples', 'too_wide'])
+def test_contract_kernel_refuses_what_it_cannot_stage(cuda, case):
+    """A group of more than 64 samples, or a row too wide for a block of 32
+    rays in shared memory, raises and launches nothing."""
+    if case == 'too_many_samples':
+        spec, dzos = K1_SPEC, tuple(range(5)) * 13
+    else:
+        spec, dzos = (40, 16, 16), (0, 1)
+    width = spec[0] * spec[1] * spec[2] * 2
+    brick = torch.ones((3, width), dtype=torch.float32, device=cuda)
+    scal = torch.full((3, 4 * len(dzos)), 0.5, dtype=torch.float32, device=cuda)
+    with pytest.raises(ValueError):
+        kernels.brick_contract_shape(len(dzos), *spec)
+    before = kernels.LAUNCHES['brick_contract']
+    with pytest.raises(RuntimeError):
+        kernel_profile.brick_contract(brick, scal, dzos, *spec)
+    assert kernels.LAUNCHES['brick_contract'] == before
 
 
 @pytest.mark.cuda
@@ -745,3 +815,30 @@ def test_brick_ablations_apply_to_the_kernel_source(name):
 def test_brick_ablation_needs_the_card():
     with pytest.raises(ValueError, match='CUDA'):
         brick_ablation.run('cpu')
+
+
+@pytest.mark.parametrize('name', sorted(contract_ablation.ABLATIONS))
+def test_contract_ablations_apply_to_the_kernel_source(name):
+    """Each ablation of scripts/contract_ablation.py still finds the one line
+    of csrc/brick_contract.cu it replaces."""
+    src = (kernels.CSRC / contract_ablation.SOURCE).read_text()
+    old, new = contract_ablation.ABLATIONS[name]
+    out = brick_ablation.ablated_source(name, contract_ablation.SOURCE,
+                                        contract_ablation.ABLATIONS)
+    assert src.count(old) == 1 and out == src.replace(old, new) != src
+
+
+def test_contract_ablation_needs_the_card():
+    with pytest.raises(ValueError, match='CUDA'):
+        contract_ablation.run('cpu')
+
+
+def test_contract_timing_on_cpu():
+    """``kernel_profile contract`` on the CPU: one record, the twin against
+    itself bit for bit, no times, and the kernel layer it ran named."""
+    lines = []
+    rec = kernel_profile.contract_timing('cpu', n_rays=600, grid=(12, 40, 40), say=lines.append)
+    assert len(lines) == 1 and rec['mode'] == 'contract' and rec['spec'] == [7, 3, 3, 6]
+    assert rec['bit_identical'] and rec['nan_masks_equal'] and rec['max_abs'] == 0.0
+    assert rec['k1_ms'] is None and rec['variant_ms'] is None and rec['n_rays'] == 600
+    assert rec['kernels'] == kernels.__file__ and rec['n_groups'] >= 1
