@@ -36,7 +36,7 @@ Phases, each printing one line; any failure exits non-zero:
      pallas (K1), pallas2 (K2), prodmerged (K3), prodpallas (B2) and prodi16
      (K4), then split, then spec (8,4,4,24) through pallas2 and prodpallas
      (24 samples a group); each passes the script's 4096-ray check. Then
-     K1-K4 against their twins on all rays (K1 bit for bit), K4 also
+     K1-K4 against their twins on all rays (K1 and K3 bit for bit), K4 also
      against B2.
   7. large cubes through ``integrate_rays`` with the mode ``pack_mode_for``
      picks: bench's midcube (50x640x640, brick_i16, kernel K4) against
@@ -156,12 +156,13 @@ def brick_resources(kernels) -> dict:
     return out
 
 
-def contract_resources(kernels) -> dict:
-    """Registers and spills that ptxas reported for each K1 instance ('3x3',
-    '4x4'; '0x0' is the instance for any other window up to 8x8)."""
+def instance_resources(kernels, source: str, kernel: str) -> dict:
+    """Registers and spills that ptxas reported for each window instance of
+    ``kernel`` in ``source`` ('3x3', '4x4'; '0x0' is the instance for any
+    other window up to 8x8): K1 and K3."""
     out = {}
-    for fn, res in kernels.ptxas_resources('brick_contract.cu').items():
-        m = re.search(r'brick_contract_kernelILi(\d+)ELi(\d+)E', fn)
+    for fn, res in kernels.ptxas_resources(source).items():
+        m = re.search(kernel + r'ILi(\d+)ELi(\d+)E', fn)
         if m:
             out[f'{m.group(1)}x{m.group(2)}'] = res
     return out
@@ -662,23 +663,39 @@ def phase_profile(torch, kernels):
          sum(n * o[0].shape[1] * (12 * len(o[2]) + 6) for o in ops), exact=True)
     threads, smem = kernels.brick_contract_shape(max(len(o[2]) for o in ops), planes, wy, wx)
     out['brick_contract'].update(variant_ms=timed[(7, 3, 3, 6), 'pallas'], threads=threads,
-                                 smem_bytes=smem, ptxas=contract_resources(kernels))
+                                 smem_bytes=smem,
+                                 ptxas=instance_resources(kernels, 'brick_contract.cu',
+                                                          'brick_contract_kernel'))
     say(f'brick_contract launch: {threads} threads, {smem} shared bytes a block (at the '
         f'largest group); ptxas {json.dumps(out["brick_contract"]["ptxas"])}')
     del ops
+    # K2 and K3 read, of each ray's brick row, only the planes dzo and dzo + 1
+    # of the group's samples (wy wx (wet, hydro) pairs a plane)
+    def brick_floats(samples):
+        return n * len({s[8] + d for s in samples for d in (0, 1)}) * wy * wx * 2
+
     ops = [o + (consts,) for o in kp.rows_inputs(st['table'], rays, groups, ys, xs)]
     hold('brick_group_rows', ops, kp.brick_group_rows, kp.group_rows_ref,
-         sum(4 * (sum(t.numel() for t in o[:7]) + 2 * n) for o in ops),
+         sum(4 * (brick_floats(o[7]) + sum(t.numel() for t in o[1:7]) + 2 * n) for o in ops),
          sum(n * len(o[7]) * (60 + 8 * wy * wx) for o in ops))
     out['brick_group_rows']['variant_ms'] = timed[(7, 3, 3, 6), 'pallas2']
     out['brick_group_rows']['g24_variant_ms'] = timed[(8, 4, 4, 24), 'pallas2']
     del ops
     ops = [o + (consts,) for o in kp.merged_inputs(st['table'], rays, groups, ys, xs)]
     hold('brick_group_merged', ops, kp.brick_group_merged, kp.group_merged_ref,
-         sum(4 * (o[0].numel() + o[1].numel() + 2 * n) for o in ops),
-         sum(n * len(o[2]) * (60 + 8 * wy * wx) for o in ops))
-    out['brick_group_merged']['variant_ms'] = timed[(7, 3, 3, 6), 'prodmerged']
-    del ops
+         sum(4 * (brick_floats(o[2]) + o[1].numel() + 2 * n) for o in ops),
+         sum(n * len(o[2]) * (60 + 8 * wy * wx) for o in ops), exact=True)
+    big = max(ops, key=lambda o: (o[1].shape[0], len(o[2])))
+    threads, smem = kernels.brick_group_merged_shape(len(big[2]), big[0].shape[1], big[4], big[5],
+                                                     wy, wx)
+    out['brick_group_merged'].update(variant_ms=timed[(7, 3, 3, 6), 'prodmerged'], threads=threads,
+                                     smem_bytes=smem,
+                                     ptxas=instance_resources(kernels, 'brick_group.cu',
+                                                              'brick_group_merged_kernel'))
+    say(f'brick_group_merged launch: {threads} threads, {smem} shared bytes a block (at the '
+        f'group with the most merged rows); ptxas '
+        f'{json.dumps(out["brick_group_merged"]["ptxas"])}')
+    del ops, big
 
     # K4: the spec's int16 table against its twin, and against B2 on f32
     from raider_tpu_torch.delay.raytrace import _pack_bricks, _quantized_pair

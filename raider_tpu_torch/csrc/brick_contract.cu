@@ -80,8 +80,9 @@
 //     shared memory.
 
 #include <cmath>
-#include <cstdint>
 #include <cuda_runtime.h>
+
+#include "stage.cuh"
 
 namespace {
 
@@ -94,15 +95,6 @@ struct DzoList {
   int v[kMaxSamples];
 };
 constexpr int kRays[] = {32, 64, 128};           // block sizes tried, one ray a thread
-constexpr long long kSmemBlockMax = 232448;      // dynamic shared bytes a block may take
-constexpr long long kSmemSM = 233472;            // shared bytes of one SM
-constexpr long long kSmemBlockReserved = 1024;   // kept by the runtime per resident block
-constexpr int kMaxBlocksSM = 32;
-
-// The brick tile's row pitch in floats: an odd number of (wet, hydro) pairs.
-__host__ __device__ __forceinline__ int brick_pitch(int width) {
-  return (width / 2) % 2 == 1 ? width : width + 2;
-}
 
 // Shared bytes of a block of R rays: the brick tile, the scalar tile, the
 // lane decode (float4 a lane), the lane weights (float4 a cell) and the
@@ -111,69 +103,6 @@ __host__ __device__ __forceinline__ long long smem_bytes(int R, int width, int S
   const long long tiles = static_cast<long long>(R) * (brick_pitch(width) + 4 * S + 1);
   const long long lists = ((planes + 1 + 2 * S) + 3) / 4 * 4;
   return (tiles + 6LL * width + lists) * 4LL;
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
-}
-
-// Copy rows [0, nr) of `cols` floats from src (contiguous) into dst at a
-// row pitch of `pitch` floats, in units of `unit` floats (4 only when
-// pitch == cols; else 1, or 2 dividing cols and pitch), consecutive threads
-// on consecutive units. In a padded tile the (row, col) of a thread's unit
-// is carried from step to step.
-__device__ __forceinline__ void stage_rows(float* dst, const float* __restrict__ src, int nr,
-                                           int cols, int pitch, int unit) {
-  const int threads = static_cast<int>(blockDim.x);
-  const long long total = static_cast<long long>(nr) * cols;
-  const int tid = static_cast<int>(threadIdx.x);
-  if (pitch == cols) {  // the tile is the span itself; a tail of < unit floats by 4 bytes
-    const long long head = total - total % unit;
-    for (long long i = static_cast<long long>(tid) * unit; i < head;
-         i += static_cast<long long>(threads) * unit) {
-      if (unit == 4) {
-        cp_async16(dst + i, src + i);
-      } else if (unit == 2) {
-        cp_async8(dst + i, src + i);
-      } else {
-        cp_async4(dst + i, src + i);
-      }
-    }
-    for (long long i = head + tid; i < total; i += threads) cp_async4(dst + i, src + i);
-    return;
-  }
-  const int step = threads * unit;
-  const int q = step / cols, r = step % cols;
-  int row = tid * unit / cols, col = tid * unit % cols;
-  for (long long i = static_cast<long long>(tid) * unit; i < total; i += step) {
-    float* d = dst + static_cast<long long>(row) * pitch + col;
-    if (unit == 2) {
-      cp_async8(d, src + i);
-    } else {
-      cp_async4(d, src + i);
-    }
-    col += r;
-    row += q;
-    if (col >= cols) {
-      col -= cols;
-      ++row;
-    }
-  }
 }
 
 // WY, WX: the window, fixed at compile time so that a plane's U lives in
@@ -202,8 +131,8 @@ __global__ void brick_contract_kernel(const float* __restrict__ brick,
 
   const long long r0 = static_cast<long long>(blockIdx.x) * R;
   const int nr = static_cast<int>(n - r0 < R ? n - r0 : R);
-  stage_rows(s_brick, brick + r0 * width, nr, width, P, brick_unit);
-  stage_rows(s_scal, scal + r0 * 4 * S, nr, 4 * S, SP, 1);  // odd pitch: 4-byte copies
+  stage_rows(s_brick, brick + r0 * width, nr, width, P, brick_unit, width);
+  stage_rows(s_scal, scal + r0 * 4 * S, nr, 4 * S, SP, 1, 4 * S);  // odd pitch: 4-byte copies
 
   // the lane decode, with the twin's float operations; a cell's two lanes
   // (wet, hydro) share (dz, dy, dx), and s_fw holds their sum weights
@@ -329,29 +258,9 @@ int launch_shape(int width, int S, int planes, int* threads, long long* smem) {
   if (S < 1 || S > kMaxSamples || planes < 2) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  long long best = -1;
-  for (int R : kRays) {
-    const long long bytes = smem_bytes(R, width, S, planes);
-    if (bytes > kSmemBlockMax) break;
-    long long blocks = kSmemSM / (bytes + kSmemBlockReserved);
-    if (blocks > kMaxBlocksSM) blocks = kMaxBlocksSM;
-    if (blocks * R >= best) {
-      best = blocks * R;
-      *threads = R;
-      *smem = bytes;
-    }
-  }
-  return best < 0 ? static_cast<int>(cudaErrorInvalidConfiguration) : 0;
-}
-
-// Copy unit (floats) of the brick tile: every block's span starts at a
-// multiple of R x width floats from `brick`, R a multiple of 4 and width
-// even, so it is as aligned as `brick`; 16-byte units need the tile to be
-// the span itself, 8-byte ones only an even width and pitch.
-int copy_unit(const float* brick, int width) {
-  const auto a = reinterpret_cast<std::uintptr_t>(brick);
-  if (brick_pitch(width) == width && a % 16 == 0) return 4;
-  return a % 8 == 0 ? 2 : 1;
+  const auto bytes = [&](int R) { return smem_bytes(R, width, S, planes); };
+  return pick_block(kRays, bytes, threads, smem) ? 0
+                                                 : static_cast<int>(cudaErrorInvalidConfiguration);
 }
 
 }  // namespace

@@ -23,6 +23,7 @@ import subprocess
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / 'csrc'
@@ -226,12 +227,15 @@ def lib() -> ctypes.CDLL:
             p]                    # stream
         so.brick_group_rows_launch.restype = i
         so.brick_group_merged_launch.argtypes = [
-            p, p, p, p, p,        # brick, merged, plan_i, plan_f, out
+            p, p, p, p, p,        # brick, merged, plan_i, plan_f (host), out
             ll, i, i, i, i,       # n, S, width, nb, nl
             f, f, f, f, f, f,     # y lo, hi, x lo, hi, z lo, hi
             f, f, i, i, i, i,     # inv_sy, inv_sx, ny, nx, wy, wx
             p]                    # stream
         so.brick_group_merged_launch.restype = i
+        so.brick_group_merged_shape.argtypes = [i, i, i, i, i, i, ctypes.POINTER(i),
+                                                ctypes.POINTER(ll)]
+        so.brick_group_merged_shape.restype = i
         so.window_integrate_launch.argtypes = [
             p, p, p, p, p,       # lo, hi, d2, ray_len, re
             p, p,                # cube_w, cube_h
@@ -337,11 +341,32 @@ def launch_brick_group_rows(brickT, by, bx, bz, d2, rl, aux, plan_i, plan_f, out
     LAUNCHES['brick_group_rows'] += 1
 
 
+def brick_group_merged_shape(S: int, width: int, nb: int, nl: int, wy: int, wx: int) -> tuple:
+    """(threads a block, dynamic shared bytes a block) of kernel K3 for a
+    group of ``S`` samples on a brick of ``width`` floats a ray with ``nb``,
+    ``nl`` merged rows, as its launcher derives them; ValueError for what
+    the launcher refuses (more than 64 samples, a window past 8x8, or a
+    block that does not fit shared memory)."""
+    threads, smem = ctypes.c_int(0), ctypes.c_longlong(0)
+    code = lib().brick_group_merged_shape(S, width, nb, nl, wy, wx, ctypes.byref(threads),
+                                          ctypes.byref(smem))
+    if code != 0:
+        raise ValueError(f'brick_group_merged: no launch shape for {S} samples, width {width}, '
+                         f'nb {nb}, nl {nl}, a {wy}x{wx} window (CUDA error {code})')
+    return threads.value, smem.value
+
+
 def launch_brick_group_merged(brick, merged, plan_i, plan_f, out, *, nb, nl, consts) -> None:
-    """Kernel K3 on one group (arguments checked by the caller)."""
+    """Kernel K3 on one group (arguments checked by the caller; ``plan_i``
+    int32 (S, 4) and ``plan_f`` float32 (S, 6) host arrays, passed with the
+    launch); the launcher derives the launch shape and refuses what does
+    not fit."""
+    pi = np.ascontiguousarray(plan_i, dtype=np.int32)
+    pf = np.ascontiguousarray(plan_f, dtype=np.float32)
     code = lib().brick_group_merged_launch(
-        _ptr(brick), _ptr(merged), _ptr(plan_i), _ptr(plan_f), _ptr(out), brick.shape[0],
-        plan_i.shape[0], brick.shape[1], nb, nl, *consts, _stream())
+        _ptr(brick), _ptr(merged), pi.ctypes.data_as(ctypes.c_void_p),
+        pf.ctypes.data_as(ctypes.c_void_p), _ptr(out), brick.shape[0], pi.shape[0],
+        brick.shape[1], nb, nl, *consts, _stream())
     _check('brick_group_merged', code)
     LAUNCHES['brick_group_merged'] += 1
 

@@ -39,7 +39,8 @@ _RAYS = 'constexpr int kRays[] = {32, 64, 128};'
 ABLATIONS = {
     'copy_only': (_ROW, _ROW + '  if (S > 0) {\n    out_w[ray] = row[0].x;\n'
                   '    out_h[ray] = row[width / 2 - 1].y;\n    return;\n  }\n'),
-    'no_copy': ('  stage_rows(s_brick, brick + r0 * width, nr, width, P, brick_unit);\n', ''),
+    'no_copy': ('  stage_rows(s_brick, brick + r0 * width, nr, width, P, brick_unit, width);\n',
+                ''),
     'rays32': (_RAYS, 'constexpr int kRays[] = {32};'),
     'rays128': (_RAYS, 'constexpr int kRays[] = {128};'),
 }

@@ -3,13 +3,15 @@
 Counterpart of ``scripts/kernel_profile.py``, run as
 
     python -m raider_tpu_torch.scripts.kernel_profile [spec|split] [variant]
-    python -m raider_tpu_torch.scripts.kernel_profile contract [spec]
+    python -m raider_tpu_torch.scripts.kernel_profile contract|merged|rows [spec]
 
 ``spec`` is ``planes,wy,wx,group_max`` (default: every entry of ``SPECS``,
 then ``split``); ``split`` runs only the gather/arithmetic ablations;
 ``contract`` times kernel K1 alone over the groups of ``spec`` (default
-7,3,3,6) and the ``pallas`` variant around it (:func:`contract_timing`). The
-scene is the script's own: 50x400x400 random wet/hydro cubes on absolute
+7,3,3,6) and the ``pallas`` variant around it (:func:`contract_timing`),
+``merged`` kernel K3 and the ``prodmerged`` variant (:func:`merged_timing`),
+``rows`` kernel K2 and the ``pallas2`` variant (:func:`rows_timing`).
+The scene is the script's own: 50x400x400 random wet/hydro cubes on absolute
 coordinates (lat 30-40, lon -125..-115) and 1,000,000 incoherent slant rays
 (random start, azimuth, 25-45 deg zenith), built in float64 on the device.
 The variants:
@@ -210,13 +212,14 @@ def group_consts(ys_np, xs_np, zs_np, wy: int, wx: int) -> tuple:
             (ny - 1) / (y_hi - y_lo), (nx - 1) / (x_hi - x_lo), ny, nx, wy, wx)
 
 
-def _group_plan_arrays(samples, lv0: int, device):
-    """The group's plan for K2/K3: int (S, 4) [lv, wal, wbl relative to lv0,
-    dzo] and float32 (S, 6) [f, f (1 - f), wav, wbv, zlo, zinv]."""
+def group_plan(samples, lv0: int) -> tuple:
+    """The group's plan for K2/K3 (host arrays): int32 (S, 4) [lv, wal, wbl
+    relative to lv0, dzo] and float32 (S, 6) [f, f (1 - f), wav, wbv, zlo,
+    zinv]."""
     pi = np.array([[s[0] - lv0, s[2] - lv0, s[4] - lv0, s[8]] for s in samples], np.int32)
     pf = np.array([[s[1], s[1] * (1.0 - s[1]), s[3], s[5], s[6], s[7]] for s in samples],
                   np.float64).astype(np.float32)
-    return torch.as_tensor(pi, device=device), torch.as_tensor(pf, device=device)
+    return pi, pf
 
 
 def _group_ref(rows, brick_row, samples, lv0: int, consts):
@@ -319,7 +322,7 @@ def brick_group_rows(brickT, by, bx, bz, d2, rl, aux, samples, lv0: int, consts)
     if brickT.device.type != 'cuda':
         raise ValueError(f'brick_group_rows: unsupported device {brickT.device}')
     _check_cuda_f32('brick_group_rows', brickT, by, bx, bz, d2, rl, aux)
-    pi, pf = _group_plan_arrays(samples, lv0, brickT.device)
+    pi, pf = (torch.as_tensor(a, device=brickT.device) for a in group_plan(samples, lv0))
     out = torch.empty((2, n), dtype=torch.float32, device=brickT.device)
     kernels.launch_brick_group_rows(brickT, by, bx, bz, d2, rl, aux, pi, pf, out, consts=consts)
     return out
@@ -340,7 +343,7 @@ def brick_group_merged(brick, merged, samples, lv0: int, nb: int, nl: int, const
     if brick.device.type != 'cuda':
         raise ValueError(f'brick_group_merged: unsupported device {brick.device}')
     _check_cuda_f32('brick_group_merged', brick, merged)
-    pi, pf = _group_plan_arrays(samples, lv0, brick.device)
+    pi, pf = group_plan(samples, lv0)
     out = torch.empty((2, n), dtype=torch.float32, device=brick.device)
     kernels.launch_brick_group_merged(brick, merged, pi, pf, out, nb=nb, nl=nl, consts=consts)
     return out
@@ -732,6 +735,32 @@ def same_bits(a, b) -> bool:
     return bool(torch.equal(torch.isnan(a), nan)) and bool(torch.equal(a[~nan], b[~nan]))
 
 
+def _kernel_timing(mode: str, key: str, kp, sc: dict, st: dict, ops, kernel, twin, fn,
+                   say) -> dict:
+    """One record of ``kernel`` over the groups' operands ``ops``: the
+    CUDA-event ms of its calls over all groups (``key``), the variant ``fn``
+    around it, and the kernel against ``twin`` on every group (max-abs over
+    the twin's finite entries, equal NaN masks, bit-identical)."""
+    dev = sc['device']
+    err, masks, exact = 0.0, True, True
+    for o in ops:
+        for a, b in zip(kernel(*o), twin(*o)):
+            masks = masks and bool(torch.equal(torch.isnan(a), torch.isnan(b)))
+            exact = exact and same_bits(a, b)
+            fin = torch.isfinite(b)
+            if bool(fin.any()):
+                err = max(err, float((a[fin] - b[fin]).abs().max()))
+    rec = {'mode': mode, 'spec': list(st['spec']), 'n_groups': len(ops),
+           'n_samples': st['plan'].n_points, 'n_rays': sc['rays'][0].shape[1],
+           key: _time(lambda: [kernel(*o) for o in ops], dev),
+           'variant_ms': _time(lambda: fn(st['table'], *sc['rays']), dev),
+           'max_abs': err, 'nan_masks_equal': masks, 'bit_identical': exact,
+           'kernels': kp.kernels.__file__, 'device': str(dev),
+           'card': card() if dev.type == 'cuda' else None}
+    say(json.dumps(rec))
+    return rec
+
+
 def contract_timing(device='cuda', spec=(7, 3, 3, 6), n_rays: int = N_RAYS, grid=GRID,
                     seed: int = 0, say=print, scene=None, profile=None) -> dict:
     """Kernel K1 over every group of ``spec`` on the scene: the CUDA-event
@@ -747,36 +776,63 @@ def contract_timing(device='cuda', spec=(7, 3, 3, 6), n_rays: int = N_RAYS, grid
     Prints and returns one JSON record."""
     kp = profile or sys.modules[__name__]
     sc = scene if scene is not None else kp.build_scene(device, n_rays, grid, seed)
-    dev = sc['device']
     st = kp.spec_setup(sc, spec)
     planes, wy, wx = st['planes'], st['wy'], st['wx']
     ops = [o + (planes, wy, wx) for o in kp.contract_inputs(st['table'], sc['rays'], st['groups'],
                                                             wy, wx, sc['ys'], sc['xs'], sc['zs'])]
-    err, masks, exact = 0.0, True, True
-    for o in ops:
-        for a, b in zip(kp.brick_contract(*o), kp.contract_ref(*o)):
-            masks = masks and bool(torch.equal(torch.isnan(a), torch.isnan(b)))
-            exact = exact and same_bits(a, b)
-            fin = torch.isfinite(b)
-            if bool(fin.any()):
-                err = max(err, float((a[fin] - b[fin]).abs().max()))
     fn = kp.make_pallas_fn(st['groups'], planes, wy, wx, sc['ys'], sc['xs'], sc['zs'])
-    rec = dict(mode='contract', spec=list(spec), n_groups=len(ops),
-               n_samples=st['plan'].n_points, n_rays=sc['rays'][0].shape[1],
-               k1_ms=_time(lambda: [kp.brick_contract(*o) for o in ops], dev),
-               variant_ms=_time(lambda: fn(st['table'], *sc['rays']), dev),
-               max_abs=err, nan_masks_equal=masks, bit_identical=exact,
-               kernels=kp.kernels.__file__, device=str(dev),
-               card=card() if dev.type == 'cuda' else None)
-    say(json.dumps(rec))
-    return rec
+    return _kernel_timing('contract', 'k1_ms', kp, sc, st, ops, kp.brick_contract,
+                          kp.contract_ref, fn, say)
+
+
+def merged_timing(device='cuda', spec=(7, 3, 3, 6), n_rays: int = N_RAYS, grid=GRID,
+                  seed: int = 0, say=print, scene=None, profile=None) -> dict:
+    """Kernel K3 over every group of ``spec`` on the scene, as
+    :func:`contract_timing` times K1: ``k3_ms`` its calls over all groups,
+    ``variant_ms`` the ``prodmerged`` variant around it (the anchors, the
+    gathers and the merged rows in torch, plus K3), and K3 against
+    ``group_merged_ref`` on every group. ``profile``: as for
+    :func:`contract_timing`. Prints and returns one JSON record."""
+    kp = profile or sys.modules[__name__]
+    sc = scene if scene is not None else kp.build_scene(device, n_rays, grid, seed)
+    st = kp.spec_setup(sc, spec)
+    planes, wy, wx = st['planes'], st['wy'], st['wx']
+    consts = kp.group_consts(sc['ys'], sc['xs'], sc['zs'], wy, wx)
+    ops = [o + (consts,) for o in kp.merged_inputs(st['table'], sc['rays'], st['groups'],
+                                                   sc['ys'], sc['xs'])]
+    fn = kp.make_merged_fn(st['groups'], planes, wy, wx, sc['ys'], sc['xs'], sc['zs'])
+    return _kernel_timing('merged', 'k3_ms', kp, sc, st, ops, kp.brick_group_merged,
+                          kp.group_merged_ref, fn, say)
+
+
+def rows_timing(device='cuda', spec=(7, 3, 3, 6), n_rays: int = N_RAYS, grid=GRID,
+                seed: int = 0, say=print, scene=None, profile=None) -> dict:
+    """Kernel K2 over every group of ``spec`` on the scene, as
+    :func:`contract_timing` times K1: ``k2_ms`` its calls over all groups,
+    ``variant_ms`` the ``pallas2`` variant around it, and K2 against
+    ``group_rows_ref`` on every group. ``profile``: as for
+    :func:`contract_timing`. Prints and returns one JSON record."""
+    kp = profile or sys.modules[__name__]
+    sc = scene if scene is not None else kp.build_scene(device, n_rays, grid, seed)
+    st = kp.spec_setup(sc, spec)
+    planes, wy, wx = st['planes'], st['wy'], st['wx']
+    consts = kp.group_consts(sc['ys'], sc['xs'], sc['zs'], wy, wx)
+    ops = [o + (consts,) for o in kp.rows_inputs(st['table'], sc['rays'], st['groups'],
+                                                 sc['ys'], sc['xs'])]
+    fn = kp.make_pallas2_fn(st['groups'], planes, wy, wx, sc['ys'], sc['xs'], sc['zs'])
+    return _kernel_timing('rows', 'k2_ms', kp, sc, st, ops, kp.brick_group_rows,
+                          kp.group_rows_ref, fn, say)
+
+
+TIMINGS = {'contract': contract_timing, 'merged': merged_timing, 'rows': rows_timing}
 
 
 def main() -> None:
-    if len(sys.argv) > 1 and sys.argv[1] == 'contract':
+    if len(sys.argv) > 1 and sys.argv[1] in TIMINGS:
         spec = tuple(int(v) for v in sys.argv[2].split(',')) if len(sys.argv) > 2 else (7, 3, 3, 6)
-        contract_timing(require_device('cuda'), spec, say=lambda s: print(s, flush=True),
-                        profile=importlib.import_module('raider_tpu_torch.scripts.kernel_profile'))
+        timing = TIMINGS[sys.argv[1]]
+        timing(require_device('cuda'), spec, say=lambda s: print(s, flush=True),
+               profile=importlib.import_module('raider_tpu_torch.scripts.kernel_profile'))
         return
     spec = sys.argv[1] if len(sys.argv) > 1 else None
     variant = sys.argv[2] if len(sys.argv) > 2 else 'prod'

@@ -8,7 +8,7 @@ card and without jax:
 
 The kernels use round-to-nearest arithmetic in their twins' order of
 operations, so on NaN-free inputs they must agree with the twins exactly;
-the stated tolerances (B2, B3, K2-K4 1e-5 relative; B1, K1, S4 and S5 exact)
+the stated tolerances (B2, B3, K2, K4 1e-5 relative; B1, K1, K3, S4 and S5 exact)
 are the contract the smoke run holds them to.
 """
 
@@ -25,9 +25,10 @@ from raider_tpu_torch.delay import raytrace
 from raider_tpu_torch.delay.raytrace import (build_group_plan, integrate_bricks,
                                              integrate_bricks_ref, pack_cubes)
 from raider_tpu_torch.ops.ztd import ztd_totals, ztd_totals_ref
-from raider_tpu_torch.scripts import (brick_ablation, contract_ablation, kernel_profile, probe_f16,
-                                      window_ablation, ztd_layouts)
+from raider_tpu_torch.scripts import (brick_ablation, contract_ablation, group_ablation,
+                                      kernel_profile, probe_f16, window_ablation, ztd_layouts)
 from _contract_cases import CASES, SPEC as K1_SPEC, contract_case
+from _group_cases import launch_shape as merged_launch_shape, profile_groups
 
 K1, K2, K3 = 0.776, 0.233, 3.75e3
 
@@ -535,7 +536,8 @@ def test_contract_kernel_refuses_what_it_cannot_stage(cuda, case):
 @pytest.mark.parametrize('spec', [(7, 3, 3, 6), (8, 4, 4, 24)])
 @pytest.mark.parametrize('bad_rays', [False, True])
 def test_group_kernels_match_twins(cuda, spec, bad_rays):
-    """Kernels K2 (rows) and K3 (merged) against their twins, group by group."""
+    """Kernels K2 (rows, max-rel 1e-5) and K3 (merged, bit for bit) against
+    their twins, group by group."""
     sc, st = _profile_case(cuda, spec, bad_rays)
     consts = kernel_profile.group_consts(sc['ys'], sc['xs'], sc['zs'], st['wy'], st['wx'])
     for ops in kernel_profile.rows_inputs(st['table'], sc['rays'], st['groups'], sc['ys'],
@@ -551,7 +553,95 @@ def test_group_kernels_match_twins(cuda, spec, bad_rays):
         got = kernel_profile.brick_group_merged(*ops, consts)
         torch.cuda.synchronize()
         assert kernels.LAUNCHES['brick_group_merged'] == before + 1
-        _same(got, kernel_profile.group_merged_ref(*ops, consts))
+        want = kernel_profile.group_merged_ref(*ops, consts)
+        for a, b in zip(got, want):
+            _bitwise(a, b)
+
+
+def _merged_both(ops, consts):
+    before = kernels.LAUNCHES['brick_group_merged']
+    got = kernel_profile.brick_group_merged(*ops, consts)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES['brick_group_merged'] == before + 1
+    for a, b in zip(got, kernel_profile.group_merged_ref(*ops, consts)):
+        _bitwise(a, b)
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('spec', [(7, 3, 3, 6), (8, 4, 4, 24)])
+@pytest.mark.parametrize('n_rays', [37, 4097])
+@pytest.mark.parametrize('bad_rays', [False, True])
+def test_merged_kernel_ragged_ray_counts(cuda, spec, n_rays, bad_rays):
+    """K3 bit for bit against its twin on every group for a ray count that is
+    a multiple of neither a block nor 4 (ragged slab rows, a partial last
+    block) and one below a block."""
+    sc = kernel_profile.build_scene(cuda, n_rays=n_rays, grid=(12, 40, 40), seed=5)
+    if bad_rays:
+        sc['rays'][0][:, :3] = float('nan')
+        sc['rays'][1][:, 7] += 30.0
+        sc['rays'][4][:, 11] = float('nan')
+    st = kernel_profile.spec_setup(sc, spec)
+    consts = kernel_profile.group_consts(sc['ys'], sc['xs'], sc['zs'], st['wy'], st['wx'])
+    n = 0
+    for ops in kernel_profile.merged_inputs(st['table'], sc['rays'], st['groups'], sc['ys'],
+                                            sc['xs']):
+        got = _merged_both(ops, consts)
+        assert got.shape == (2, n_rays)
+        assert bool(torch.isnan(got[:, :3]).all()) == bad_rays
+        n += 1
+    assert n == len(st['groups'])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('offset', [1, 2, 3])
+def test_merged_kernel_reads_operands_at_every_alignment(cuda, offset):
+    """K3 bit for bit with its brick and merged rows 4-, 8- or 12-byte past
+    a 16-byte boundary (the 4- and 8-byte brick copies, every slab head)."""
+    sc, st = _profile_case(cuda, (7, 3, 3, 6), bad_rays=True)
+    consts = kernel_profile.group_consts(sc['ys'], sc['xs'], sc['zs'], st['wy'], st['wx'])
+    for brick, merged, *rest in kernel_profile.merged_inputs(st['table'], sc['rays'],
+                                                             st['groups'], sc['ys'], sc['xs']):
+        moved = []
+        for t in (brick, merged):
+            buf = torch.empty(t.numel() + offset, dtype=torch.float32, device=cuda)
+            moved.append(buf[offset:].view(t.shape))
+            moved[-1].copy_(t)
+        _merged_both((*moved, *rest), consts)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('spec', [(7, 3, 3, 6), (8, 4, 4, 24)])
+def test_merged_launch_shape(cuda, spec):
+    """The launcher's shape on every group of the kernel profile's plans is
+    the model's (tests/_group_cases.py), which the CPU tests pin."""
+    planes, wy, wx, _ = spec
+    width = planes * wy * wx * 2
+    for S, nb, nl in profile_groups(spec):
+        assert kernels.brick_group_merged_shape(S, width, nb, nl, wy, wx) == \
+            merged_launch_shape(S, width, nb, nl)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', ['too_many_samples', 'window_9x9'])
+def test_merged_kernel_refuses_what_it_cannot_stage(cuda, case):
+    """A group of more than 64 samples, or a window past 8x8, raises and
+    launches nothing."""
+    wy = 9 if case == 'window_9x9' else 3
+    sample = (0, 0.5, 0, 0.5, 1, 0.5, 0.0, 1.0e-3, 0)   # lv, f, wal, wav, wbl, wbv, zlo, zinv, dzo
+    samples = [sample] * (65 if case == 'too_many_samples' else 2)
+    nb, nl, n = 2, 2, 100
+    width = 2 * wy * wy * 2
+    brick = torch.ones((n, width), dtype=torch.float32, device=cuda)
+    merged = torch.ones((3 * nb + 2 * nl + 3, n), dtype=torch.float32, device=cuda)
+    consts = (0.0, 10.0, 0.0, 10.0, 0.0, 10.0, 1.0, 1.0, 11, 11, wy, wy)
+    with pytest.raises(ValueError):
+        kernels.brick_group_merged_shape(len(samples), width, nb, nl, wy, wy)
+    before = kernels.LAUNCHES['brick_group_merged']
+    with pytest.raises(RuntimeError):
+        kernel_profile.brick_group_merged(brick, merged, samples, 0, nb, nl, consts)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES['brick_group_merged'] == before
 
 
 @pytest.mark.cuda
@@ -841,4 +931,41 @@ def test_contract_timing_on_cpu():
     assert len(lines) == 1 and rec['mode'] == 'contract' and rec['spec'] == [7, 3, 3, 6]
     assert rec['bit_identical'] and rec['nan_masks_equal'] and rec['max_abs'] == 0.0
     assert rec['k1_ms'] is None and rec['variant_ms'] is None and rec['n_rays'] == 600
+    assert rec['kernels'] == kernels.__file__ and rec['n_groups'] >= 1
+
+
+@pytest.mark.parametrize('name', sorted(group_ablation.ABLATIONS))
+def test_group_ablations_apply_to_the_kernel_source(name):
+    """Each ablation of scripts/group_ablation.py still finds the lines of
+    csrc/brick_group.cu it replaces, once."""
+    src = (kernels.CSRC / group_ablation.SOURCE).read_text()
+    old, new = group_ablation.ABLATIONS[name]
+    out = brick_ablation.ablated_source(name, group_ablation.SOURCE, group_ablation.ABLATIONS)
+    assert src.count(old) == 1 and out == src.replace(old, new) != src
+
+
+def test_group_ablation_needs_the_card():
+    with pytest.raises(ValueError, match='CUDA'):
+        group_ablation.run('cpu')
+
+
+def test_merged_timing_on_cpu():
+    """``kernel_profile merged`` on the CPU: one record, the twin against
+    itself bit for bit, no times, and the kernel layer it ran named."""
+    lines = []
+    rec = kernel_profile.merged_timing('cpu', n_rays=600, grid=(12, 40, 40), say=lines.append)
+    assert len(lines) == 1 and rec['mode'] == 'merged' and rec['spec'] == [7, 3, 3, 6]
+    assert rec['bit_identical'] and rec['nan_masks_equal'] and rec['max_abs'] == 0.0
+    assert rec['k3_ms'] is None and rec['variant_ms'] is None and rec['n_rays'] == 600
+    assert rec['kernels'] == kernels.__file__ and rec['n_groups'] >= 1
+
+
+def test_rows_timing_on_cpu():
+    """``kernel_profile rows`` on the CPU: one record of K2's twin against
+    itself, no times, and the kernel layer it ran named."""
+    lines = []
+    rec = kernel_profile.rows_timing('cpu', n_rays=600, grid=(12, 40, 40), say=lines.append)
+    assert len(lines) == 1 and rec['mode'] == 'rows' and rec['spec'] == [7, 3, 3, 6]
+    assert rec['bit_identical'] and rec['nan_masks_equal'] and rec['max_abs'] == 0.0
+    assert rec['k2_ms'] is None and rec['variant_ms'] is None and rec['n_rays'] == 600
     assert rec['kernels'] == kernels.__file__ and rec['n_groups'] >= 1
