@@ -28,7 +28,9 @@ Phases, each printing one line; any failure exits non-zero:
   4. the windowed path: the window ablation's scene (a 50x400x400 cube,
      1000x1000 coherent rays) through ``integrate_rays_windowed`` (kernel
      B3), which must take the batch; then B3 against its twin on the same
-     operands and against the brick path (B2) on the same rays.
+     operands (bit for bit, equal NaN masks) and against the brick path (B2)
+     on the same rays; B3's launch (threads, shared bytes, ring slots,
+     stages) and its ptxas registers and spills.
   5. the 16-bit probes: ``probe_f16.run`` (kernel S4 for bf16, f16 and int16,
      kernel S5, each against its twin, and the row-gather timings).
   6. the kernel profile: ``kernel_profile.run`` on its own scene (50x400x400
@@ -75,7 +77,7 @@ SPACING_M = 250.0                # output cube spacing: ~1.2M pixels over BBOX
 MIN_PIXELS = 1_000_000
 WINDOW_SIDE = 1000               # phase 4 rays per side (the window ablation's)
 WINDOW_GRID = (50, 400, 400)     # phase 4 cube
-B3_TOL = 1e-5      # max relative difference, kernel B3 vs its twin and vs B2
+B3_TOL = 1e-5      # max relative difference, kernel B3 vs B2 (B3 vs its twin: bit for bit)
 PROBE_N = 1 << 20                # phase 5 block rows (the probe's)
 GATHER_ROWS = 50 * 400 * 400     # phase 5 gather table rows (the probe's)
 PROFILE_GRID = (50, 400, 400)    # phase 6: the kernel profile's scene
@@ -496,10 +498,12 @@ def phase_main_path(torch, kernels, b2_incoherent_ms):
 def phase_window(torch, kernels):
     """Phase 4: the windowed path (kernel B3) on the window ablation's scene."""
     from raider_tpu_torch.delay.pallas_window import (integrate_rays_windowed, prepare_windowed,
-                                                      window_integrate, window_integrate_ref)
+                                                      window_integrate, window_integrate_ref,
+                                                      window_launch_shape)
     from raider_tpu_torch.delay.raytrace import pack_cubes
-    from raider_tpu_torch.scripts import cuda_ms
+    from raider_tpu_torch.scripts import cuda_ms, device_ms
     from raider_tpu_torch.scripts import window_ablation as wa
+    from raider_tpu_torch.scripts.kernel_profile import same_bits
 
     sc = wa.build_scene(WINDOW_SIDE, grid=WINDOW_GRID, device=DEVICE, seed=SEED)
     args = wa.windowed_args(sc)
@@ -521,20 +525,24 @@ def phase_window(torch, kernels):
     torch.cuda.synchronize()
     same_nan = bool(torch.equal(torch.isnan(wk), torch.isnan(wr))
                     and torch.equal(torch.isnan(hk), torch.isnan(hr)))
-    b3_rel = max(max_rel(torch, wk, wr), max_rel(torch, hk, hr))
+    exact = same_bits(wk, wr) and same_bits(hk, hr)
     fin = torch.isfinite(wr) & torch.isfinite(hr)
     b3_abs = float(max((wk - wr)[fin].abs().max(), (hk - hr)[fin].abs().max()))
     b3_ms = cuda_ms(lambda: window_integrate(b))
+    b3_device = device_ms(lambda: window_integrate(b), 'window_integrate_kernel')[1]
     b3_plain = cuda_ms(lambda: window_integrate_ref(b))
     entry_ms = cuda_ms(lambda: integrate_rays_windowed(*args, device=DEVICE))
     prep_ms = cuda_ms(lambda: prepare_windowed(*args, device=DEVICE))
+    shape = window_launch_shape(b)
+    ptxas = kernels.ptxas_resources('window_integrate.cu')
     say(f'B3 window_integrate {WINDOW_GRID} cube, {n_pix} rays ({b.re.shape[0]} in '
-        f'{b.ay.shape[0]} tiles), {b.lvl.shape[0]} groups, WY {b.wy}: vs twin max-rel '
-        f'{b3_rel:.3e} max-abs {b3_abs:.3e} m, NaN masks equal {same_nan}; kernel {b3_ms:.3f} ms, '
-        f'twin {b3_plain:.3f} ms; entry point {entry_ms:.3f} ms (tile order and pre-pass '
-        f'{prep_ms:.3f} ms; first call {first_s:.3f} s)')
+        f'{b.ay.shape[0]} tiles), {b.lvl.shape[0]} groups, WY {b.wy}: vs twin bit-identical '
+        f'{exact}, max-abs {b3_abs:.3e} m, NaN masks equal {same_nan}; kernel {b3_ms:.3f} ms '
+        f'(device {b3_device}), twin {b3_plain:.3f} ms; entry point {entry_ms:.3f} ms (tile order '
+        f'and pre-pass {prep_ms:.3f} ms; first call {first_s:.3f} s); launch {shape}, ptxas '
+        f'{ptxas}')
     check(same_nan, 'B3 NaN masks differ from the twin')
-    check(b3_rel <= B3_TOL, f'B3 max-rel vs twin {b3_rel} > {B3_TOL}')
+    check(exact, 'B3 is not bit-identical to its twin')
 
     # B3 against the brick path on the same rays
     pack_ms = cuda_ms(lambda: pack_cubes(sc['wet'], sc['hydro'], grouped=True))
@@ -564,7 +572,9 @@ def phase_window(torch, kernels):
     say(f'B3 reads {n_cells} distinct cells of each cube, {b3_bytes / 1e9:.3f} GB in all: '
         f'bound {b3_bound}')
     return launches, dict(max_abs_err=b3_abs, ms=b3_ms, plain_ms=b3_plain, **b3_bound,
-                          library_ms=None, entry_ms=entry_ms, prepare_ms=prep_ms,
+                          library_ms=None, device_ms=b3_device, threads=shape['threads'],
+                          smem_bytes=shape['smem_bytes'], stages=shape['stages'], ring_slots=shape['n_slots'], ptxas=ptxas,
+                          entry_ms=entry_ms, prepare_ms=prep_ms,
                           brick_pack_ms=pack_ms,
                           brick_ms=b2_ms, max_rel_vs_brick=rel_b2)
 

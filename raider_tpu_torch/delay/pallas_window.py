@@ -18,7 +18,9 @@ cubes: no brick table is built.
 The 256-wide window and the 8/128 quantization of the anchors exist for the
 TPU's (8, 128) HBM tiling. They stay here as the admission rule and as the
 anchors of the window test, so that results and ``used`` match the JAX
-package; the kernel itself stages no window.
+package. The kernel's operand ring is planned here, on the host:
+:func:`ring_schedule` gives each operand row the plan's samples read a slot
+of the kernel's shared-memory ring.
 
 Two rules differ from the brick integrate (``delay/raytrace.py``): a cell is
 located by a multiply with ``yinv = float32(1 / ystep)``, not by a division,
@@ -117,13 +119,118 @@ def _window_anchors(low_y, low_x, high_y, high_x, lvl, frac, pad, n_tiles: int,
     return ay, ax, my, mx
 
 
+# A sample of kernel B3 reads 9 operand rows: y, x, z at the segment's low
+# end, y, x, z at its high end, d^2 (all at the sample's level), and the ray
+# length at its two trapezoid levels. A row is (array, row): array 0 lo and
+# 1 hi (rows c L + level, c = 0, 1, 2 for y, x, z), 2 d2, 3 ray_len.
+SAMPLE_WORDS = 8      # int32 words a sample in the kernel's schedule (two int4)
+SAMPLE_FLOATS = 8     # frac, wa, wb, zlo, zinv and 3 spare (two float4)
+
+
+def sample_rows(lvl: int, wa_lvl: int, wb_lvl: int, L: int) -> list:
+    """The 9 (array, row) operand rows of a sample, in the kernel's order."""
+    return [(0, lvl), (0, L + lvl), (0, 2 * L + lvl), (1, lvl), (1, L + lvl),
+            (1, 2 * L + lvl), (2, lvl), (3, wa_lvl), (3, wb_lvl)]
+
+
+def ring_schedule(lvl, wa_lvl, wb_lvl, pad, L: int, depth: int) -> dict:
+    """Kernel B3's operand ring for a plan, fetching ``depth`` samples ahead.
+
+    The real samples are taken in the plan's order (groups, then slots,
+    padding skipped). Sample k's rows that no earlier sample read are copied
+    in commit group k, which the kernel issues at iteration k - depth (the
+    prologue for k < depth), after the barrier that ends iteration
+    k - depth - 1. Each row goes into a slot whose previous row's last
+    reader came before that iteration, the lowest such slot first, and stays
+    until its own last reader: every row is copied once.
+
+    Returns a dict: ``order`` [(g, s)], ``rows`` [9 (array, row)] and
+    ``reads`` (K, 9) the slot each row is read from, per sample;
+    ``fetches`` [[(array, row, slot)]] per commit group; ``last`` (K,)
+    whether k ends its group; ``n_slots``.
+    """
+    order = [(g, s) for g in range(pad.shape[0]) for s in range(pad.shape[1]) if not pad[g, s]]
+    rows = [sample_rows(int(lvl[g, s]), int(wa_lvl[g, s]), int(wb_lvl[g, s]), L)
+            for g, s in order]
+    K = len(order)
+    last_use = {}
+    for k, keys in enumerate(rows):
+        for key in keys:
+            last_use[key] = k
+    slot_of, held, slot_last, fetches = {}, [], [], []   # row -> slot, slot -> row
+    reads = np.zeros((K, 9), np.int64)
+    for k, keys in enumerate(rows):
+        it = k - depth                    # the iteration that issues commit group k
+        mine = []
+        for key in dict.fromkeys(keys):
+            if key in slot_of:
+                continue
+            free = next((i for i, u in enumerate(slot_last) if u <= it - 1), None)
+            if free is None:
+                free = len(slot_last)
+                held.append(None)
+                slot_last.append(0)
+            slot_of.pop(held[free], None)
+            slot_of[key], held[free], slot_last[free] = free, key, last_use[key]
+            mine.append((key[0], key[1], free))
+        fetches.append(mine)
+        reads[k] = [slot_of[key] for key in keys]
+    groups = [g for g, _ in order]
+    last = np.array([k == K - 1 or groups[k] != groups[k + 1] for k in range(K)], bool)
+    return dict(order=order, rows=rows, reads=reads, fetches=fetches, last=last,
+                n_slots=len(slot_last))
+
+
+def schedule_arrays(b: 'WindowBatch', sch: dict):
+    """(int32 words, float32 values) of a :func:`ring_schedule` for kernel
+    B3, which reads each sample's as two int4 and two float4. Per sample
+    ``SAMPLE_WORDS`` words: the ring slots of its 9 rows a byte each (ly,
+    lx, lz, hy | hx, hz, d2, rl[wa] | rl[wb], with the end of its group <<
+    16); group | level << 16; cube plane; fetch start | count << 16; 0;
+    wa_lvl | wb_lvl << 16. Then the fetches (slot | array << 8 | row << 10).
+    Per sample ``SAMPLE_FLOATS`` values: frac, wa, wb, zlo, zinv, 0, 0, 0."""
+    K = len(sch['order'])
+    words = np.zeros((K, SAMPLE_WORDS), np.int64)
+    floats = np.zeros((K, SAMPLE_FLOATS), np.float32)
+    fetch, start = [], 0
+    rd = sch['reads']
+    for k, (g, s) in enumerate(sch['order']):
+        fe = sch['fetches'][k]
+        words[k] = [rd[k, 0] | rd[k, 1] << 8 | rd[k, 2] << 16 | rd[k, 3] << 24,
+                    rd[k, 4] | rd[k, 5] << 8 | rd[k, 6] << 16 | rd[k, 7] << 24,
+                    rd[k, 8] | int(sch['last'][k]) << 16,
+                    g | int(b.lvl[g, s]) << 16,
+                    int(b.za[g] + b.dzo[g, s]),
+                    start | len(fe) << 16,
+                    0,
+                    int(b.wa_lvl[g, s]) | int(b.wb_lvl[g, s]) << 16]
+        floats[k, :5] = [b.frac[g, s], b.wa[g, s], b.wb[g, s], b.zlo[g, s], b.zinv[g, s]]
+        fetch += [slot | arr << 8 | row << 10 for arr, row, slot in fe]
+        start += len(fe)
+    out = np.concatenate([words.reshape(-1), np.asarray(fetch, np.int64)])
+    return out.astype(np.uint32).view(np.int32), floats.reshape(-1)
+
+
+def pair_cubes(cube_wet, cube_hydro, device):
+    """(nz, ny, nx, 2) float32 on ``device``: the two (nz, ny, nx) cubes
+    interleaved as (wet, hydro) pairs, so that kernel B3 reads a corner of
+    both with one 8-byte load. Unlike the JAX package's cubes they are not
+    zero-padded in x: no sample reads a cell past ``nx - 1``."""
+    # a complex64 array holds (real, imaginary) float32 pairs: one pass that
+    # writes whole 8-byte pairs
+    return torch.view_as_real(torch.complex(
+        *(torch.as_tensor(c, dtype=torch.float32, device=device) for c in (cube_wet, cube_hydro))))
+
+
 class WindowBatch:
     """The operands of one windowed integrate, rays in tile order.
 
     Tensors: ``lo``/``hi`` (3, L, n) y/x/z at each segment's ends, ``d2`` and
-    ``ray_len`` (L, n), ``re`` (n,), ``cube_w``/``cube_h`` (nz, ny, nxp)
-    zero-padded in x, ``ay``/``ax`` (n_tiles, n_groups) quantized window
-    anchors, ``sel`` (n_pixels,) the tile-order position of each pixel.
+    ``ray_len`` (L, n), ``re`` (n,), ``cube`` (nz, ny, nx, 2) both cubes
+    interleaved as (wet, hydro) pairs, ``cube_w`` and ``cube_h`` its
+    (nz, ny, nx) views, ``ay``/``ax`` (n_tiles, n_groups)
+    quantized window anchors, ``sel`` (n_pixels,) the tile-order position
+    of each pixel.
     Host: the plan arrays ``lvl``, ``frac``, ``wa_lvl``, ``wa``, ``wb_lvl``,
     ``wb``, ``zlo``, ``zinv``, ``pad`` and ``dzo`` (n_groups, G), ``za``
     (n_groups,) and the scalars ``wy``, ``ny``, ``nx``, ``ylo``, ``yinv``,
@@ -193,14 +300,13 @@ def prepare_windowed(cube_wet, cube_hydro, ys, xs, zs, low_yxz, high_yxz, d2, ra
     za_s = np.minimum(za, max(nz - planes, 0))
     dzo = np.asarray(plan.dzoff, np.int64) + (za - za_s)[:, None]
 
-    cubes = [torch.nn.functional.pad(torch.as_tensor(c, dtype=torch.float32, device=dev),
-                                     (0, nxp - nx)).contiguous() for c in (cube_wet, cube_hydro)]
-
+    cube = pair_cubes(cube_wet, cube_hydro, dev)
     ylo, _, ystep, _ = yparams
     xlo, _, xstep, _ = xparams
     f32 = lambda a: np.asarray(a, np.float32)
     return WindowBatch(
-        lo=lo, hi=hi, d2=d2_t, ray_len=rl_t, re=re_t, cube_w=cubes[0], cube_h=cubes[1],
+        lo=lo, hi=hi, d2=d2_t, ray_len=rl_t, re=re_t, cube=cube, cube_w=cube[..., 0],
+        cube_h=cube[..., 1],
         ay=torch.as_tensor(ay, dtype=torch.int32, device=dev).contiguous(),
         ax=torch.as_tensor(ax, dtype=torch.int32, device=dev).contiguous(),
         sel=sel,
@@ -283,20 +389,30 @@ def window_integrate_ref(b: WindowBatch):
 
 
 def _check_batch(b: WindowBatch) -> None:
-    """Shapes, dtypes, devices and plan indices the kernel relies on."""
+    """Shapes, dtypes and devices the kernel relies on."""
     _, L, n = b.lo.shape
     nz, ny, nxp = b.cube_w.shape
     n_groups = b.lvl.shape[0]
     shapes = ((b.lo, (3, L, n)), (b.hi, (3, L, n)), (b.d2, (L, n)), (b.ray_len, (L, n)),
               (b.re, (n,)), (b.cube_w, (nz, ny, nxp)), (b.cube_h, (nz, ny, nxp)))
-    for a, shp in shapes:
+    for a, shp in shapes + ((b.cube, (nz, ny, nxp, 2)),):
         if tuple(a.shape) != shp or a.dtype != torch.float32 or a.device != b.re.device:
             raise ValueError(f'window_integrate: operand {tuple(a.shape)} {a.dtype} {a.device} '
                              f'does not match {shp} float32 {b.re.device}')
+    base, step = b.cube.data_ptr(), b.cube.element_size()
+    if (b.cube_w.data_ptr(), b.cube_h.data_ptr()) != (base, base + step) or \
+            b.cube_w.stride() != b.cube.stride()[:3] or b.cube_h.stride() != b.cube.stride()[:3]:
+        raise ValueError('window_integrate: cube_w and cube_h are not the views of cube')
     for a in (b.ay, b.ax):
         if n % TILE or a.shape != (n // TILE, n_groups) or a.dtype != torch.int32:
             raise ValueError(f'window_integrate: {n} rays are not whole tiles of {TILE} with '
                              f'(n_tiles, {n_groups}) int32 anchors')
+
+
+def _check_plan(b: WindowBatch) -> None:
+    """Plan indices inside the operands."""
+    L = b.lo.shape[1]
+    nz, ny, nxp = b.cube_w.shape
     planes = b.za[:, None] + b.dzo
     if not ((b.lvl >= 0).all() and (b.lvl < L).all()
             and (b.wa_lvl >= 0).all() and (b.wa_lvl < L).all()
@@ -306,28 +422,64 @@ def _check_batch(b: WindowBatch) -> None:
         raise ValueError('window_integrate: plan indices fall outside the operands')
 
 
+_SCHEDULES = {}   # ring schedules by plan, stage count and device (see _schedule)
+
+
+def _schedule(b: WindowBatch) -> tuple:
+    """(ring schedule, its int32 words, its float32 values) of kernel B3 as
+    the library is built (its stage count), the arrays on the batch's
+    device; kept by the plan's bytes and the operands' shapes, so that the
+    plan's checks, the host work and the copies to the device run once per
+    plan."""
+    _, stages = kernels.window_integrate_config()
+    dev = b.re.device
+    key = (stages, str(dev), b.lo.shape[1], tuple(b.cube_w.shape), b.ny, b.nx, b.wy,
+           *(np.ascontiguousarray(a).tobytes() for a in (
+               b.lvl, b.wa_lvl, b.wb_lvl, b.pad, b.za, b.dzo, b.frac, b.wa, b.wb, b.zlo,
+               b.zinv)))
+    if key not in _SCHEDULES:
+        _check_plan(b)
+        if len(_SCHEDULES) >= 64:
+            _SCHEDULES.clear()
+        sch = ring_schedule(b.lvl, b.wa_lvl, b.wb_lvl, b.pad, b.lo.shape[1], stages - 1)
+        _SCHEDULES[key] = (sch, *(torch.as_tensor(a, device=dev)
+                                  for a in schedule_arrays(b, sch)))
+    return _SCHEDULES[key]
+
+
+def window_launch_shape(b: WindowBatch) -> dict:
+    """Kernel B3's launch for a batch, as its C launcher derives it: threads
+    a block, dynamic shared bytes, the ring's slots and the stage count.
+    ValueError for what the launcher refuses."""
+    sch, _, _ = _schedule(b)
+    threads, smem = kernels.window_integrate_shape(
+        sch['n_slots'], len(sch['order']), sum(map(len, sch['fetches'])), b.lvl.shape[0])
+    return dict(threads=threads, smem_bytes=smem, n_slots=sch['n_slots'],
+                stages=kernels.window_integrate_config()[1])
+
+
 def window_integrate(b: WindowBatch):
     """Windowed integrate of a :class:`WindowBatch`: (wet, hydro) in tile
     order. CPU tensors run :func:`window_integrate_ref`; CUDA tensors
-    launch kernel B3, which takes contiguous float32 operands."""
+    launch kernel B3, which takes contiguous float32 operands, and whose
+    launcher refuses (RuntimeError, no launch) operands that are not
+    16-byte aligned or a schedule that does not fit a block."""
     _check_batch(b)
     dev = b.re.device
     if dev.type == 'cpu':
+        _check_plan(b)
         return window_integrate_ref(b)
     if dev.type != 'cuda':
         raise ValueError(f'window_integrate: unsupported device {dev}')
-    ops = (b.lo, b.hi, b.d2, b.ray_len, b.re, b.cube_w, b.cube_h, b.ay, b.ax)
+    ops = (b.lo, b.hi, b.d2, b.ray_len, b.re, b.cube, b.ay, b.ax)
     if not all(a.is_contiguous() for a in ops):
         raise ValueError('window_integrate: the CUDA kernel takes contiguous operands')
-    pad = b.pad.astype(np.int64)
-    plan_i = torch.as_tensor(np.stack([b.lvl, b.wa_lvl, b.wb_lvl, b.dzo, pad], -1).astype(np.int32),
-                             device=dev).contiguous()
-    plan_f = torch.as_tensor(np.stack([b.frac, b.wa, b.wb, b.zlo, b.zinv], -1).astype(np.float32),
-                             device=dev).contiguous()
-    za = torch.as_tensor(b.za.astype(np.int32), device=dev)
+    sch, words, floats = _schedule(b)
     out = torch.empty((2, b.re.shape[0]), dtype=torch.float32, device=dev)
     kernels.launch_window_integrate(
-        *ops, plan_i, plan_f, za, out, wy=b.wy, wx=WX, tile=TILE, nx=b.nx,
+        *ops, words, floats, out,
+        K=len(sch['order']), n_fetch=sum(map(len, sch['fetches'])), n_slots=sch['n_slots'],
+        wy=b.wy, wx=WX, tile=TILE, nx=b.nx,
         y_lo=b.ylo, y_inv=b.yinv, x_lo=b.xlo, x_inv=b.xinv,
         z_lo=b.zs0, z_hi=b.zs1, z_clip=b.z_clip)
     return out[0], out[1]

@@ -238,14 +238,19 @@ def lib() -> ctypes.CDLL:
         so.brick_group_merged_shape.restype = i
         so.window_integrate_launch.argtypes = [
             p, p, p, p, p,       # lo, hi, d2, ray_len, re
-            p, p,                # cube_w, cube_h
-            p, p, p, p, p,       # ay, ax, plan_i, plan_f, za
+            p,                   # cube (nz, ny, nxp, 2)
+            p, p, p, p,          # ay, ax, sched_i, sched_f
             p,                   # out (2, N)
-            ll, i, i, i, i, i, i, i, i, i,   # n, L, n_groups, G, wy, wx, tile, ny, nx, nxp
+            ll, i, i, i, i, i,   # n, L, n_groups, K, n_fetch, n_slots
+            i, i, i, i, i, i,    # wy, wx, tile, ny, nx, nxp
             f, f, f, f,          # y lo, y inv, x lo, x inv
             f, f, i,             # z lo, hi, z_clip
             p]                   # stream
         so.window_integrate_launch.restype = i
+        so.window_integrate_config.argtypes = [ctypes.POINTER(i)] * 2
+        so.window_integrate_config.restype = i
+        so.window_integrate_shape.argtypes = [i, i, i, i, ctypes.POINTER(i), ctypes.POINTER(ll)]
+        so.window_integrate_shape.restype = i
         for dt in PROBE_DTYPES:
             fn = getattr(so, f'probe_load_{dt}_launch')
             fn.argtypes = [p, p, ll, p]
@@ -371,17 +376,43 @@ def launch_brick_group_merged(brick, merged, plan_i, plan_f, out, *, nb, nl, con
     LAUNCHES['brick_group_merged'] += 1
 
 
-def launch_window_integrate(lo, hi, d2, ray_len, re, cube_w, cube_h, ay, ax, plan_i, plan_f,
-                            za, out, *, wy, wx, tile, nx, y_lo, y_inv, x_lo, x_inv,
-                            z_lo, z_hi, z_clip) -> None:
-    """Kernel B3 (arguments checked by the caller)."""
+def window_integrate_config() -> tuple:
+    """(rays a block, stage count) of kernel B3 as the library was built:
+    the host plans its ring with them."""
+    rays, stages = ctypes.c_int(0), ctypes.c_int(0)
+    code = lib().window_integrate_config(ctypes.byref(rays), ctypes.byref(stages))
+    _check('window_integrate_config', code)
+    return rays.value, stages.value
+
+
+def window_integrate_shape(n_slots: int, K: int, n_fetch: int, n_groups: int) -> tuple:
+    """(threads a block, dynamic shared bytes a block) of kernel B3 for a
+    ring of ``n_slots`` slots and a schedule of ``K`` samples and
+    ``n_fetch`` fetches over ``n_groups`` groups, as its launcher derives
+    them; ValueError for what it refuses."""
+    threads, smem = ctypes.c_int(0), ctypes.c_longlong(0)
+    code = lib().window_integrate_shape(n_slots, K, n_fetch, n_groups, ctypes.byref(threads),
+                                        ctypes.byref(smem))
+    if code != 0:
+        raise ValueError(f'window_integrate: no launch shape for {n_slots} ring slots, {K} '
+                         f'samples, {n_fetch} fetches, {n_groups} groups (CUDA error {code})')
+    return threads.value, smem.value
+
+
+def launch_window_integrate(lo, hi, d2, ray_len, re, cube, ay, ax, sched_i, sched_f, out,
+                            *, K, n_fetch, n_slots, wy, wx, tile, nx,
+                            y_lo, y_inv, x_lo, x_inv, z_lo, z_hi, z_clip) -> None:
+    """Kernel B3 (arguments checked by the caller; ``cube`` the (nz, ny,
+    nx, 2) interleaved cubes, ``sched_i``/``sched_f`` the ring schedule of
+    ``pallas_window.schedule_arrays``); the launcher derives the launch
+    shape and refuses what does not fit."""
     _, L, n = lo.shape
-    n_groups, G = plan_i.shape[:2]
-    ny, nxp = cube_w.shape[1:]
+    n_groups = ay.shape[1]
+    ny, nxp = cube.shape[1:3]
     code = lib().window_integrate_launch(
-        _ptr(lo), _ptr(hi), _ptr(d2), _ptr(ray_len), _ptr(re), _ptr(cube_w), _ptr(cube_h),
-        _ptr(ay), _ptr(ax), _ptr(plan_i), _ptr(plan_f), _ptr(za), _ptr(out),
-        n, L, n_groups, G, wy, wx, tile, ny, nx, nxp,
+        _ptr(lo), _ptr(hi), _ptr(d2), _ptr(ray_len), _ptr(re), _ptr(cube),
+        _ptr(ay), _ptr(ax), _ptr(sched_i), _ptr(sched_f), _ptr(out),
+        n, L, n_groups, K, n_fetch, n_slots, wy, wx, tile, ny, nx, nxp,
         y_lo, y_inv, x_lo, x_inv, z_lo, z_hi, int(z_clip), _stream())
     _check('window_integrate', code)
     LAUNCHES['window_integrate'] += 1

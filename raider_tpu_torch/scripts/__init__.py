@@ -30,6 +30,25 @@ def cuda_ms(fn, reps: int = 5) -> float:
     return float(np.median(times))
 
 
+def burst_ms(fn, n: int = 20, reps: int = 5) -> float:
+    """Median ms per call of ``fn`` over ``reps`` bursts of ``n`` calls back
+    to back between two CUDA events, after a warm-up: the device's time per
+    call when the host enqueues calls faster than the device runs them."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / n)
+    return float(np.median(times))
+
+
 def device_ms(fn, kernel: str, launches: int = 1, reps: int = 5):
     """(all kernels, the kernels whose name holds ``kernel``) device ms per
     call of ``fn``, which launches that kernel ``launches`` times, from a

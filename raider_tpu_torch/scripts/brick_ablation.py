@@ -48,13 +48,15 @@ ABLATIONS = {
 
 def ablated_source(name: str, source: str = SOURCE, ablations=None) -> str:
     """``source`` with ablation ``name`` of ``ablations`` (default: this
-    script's) applied; raises if the line it replaces is not in the source
-    exactly once."""
+    script's) applied: one (line, replacement) pair, or a list of them;
+    raises if a line it replaces is not in the source exactly once."""
     src = (kernels.CSRC / source).read_text()
-    old, new = (ABLATIONS if ablations is None else ablations)[name]
-    if src.count(old) != 1:
-        raise RuntimeError(f'ablation {name!r}: its line is not in {source} exactly once')
-    return src.replace(old, new)
+    edits = (ABLATIONS if ablations is None else ablations)[name]
+    for old, new in edits if isinstance(edits, list) else [edits]:
+        if src.count(old) != 1:
+            raise RuntimeError(f'ablation {name!r}: its line is not in {source} exactly once')
+        src = src.replace(old, new)
+    return src
 
 
 @contextlib.contextmanager

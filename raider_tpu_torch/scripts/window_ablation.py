@@ -8,7 +8,14 @@ azimuth 0.7 +- 0.01 rad and zenith 30-40 deg through the 49 level segments
 table's pack, the brick integrate and the windowed integrate (the entry
 point; its preparation, tile order and pre-pass; the kernel alone), and
 checks the windowed result against the brick one to a relative 1e-5.
-Prints one JSON line:
+Beside the kernel's call time, ``window_kernel_device_ms`` is its device
+time in a ``torch.profiler`` trace, ``window_kernel_burst_ms`` its time per
+call over bursts of 20 calls back to back, ``cube_pairs_ms`` the
+preparation's interleave of the two cubes into (wet, hydro) pairs and
+``cube_pads_ms`` two copies of them zero-padded in x as the JAX package
+pads them (the layout the kernel took before the interleave), and ``kernels`` names the kernel layer that ran (run as a file, the script uses the package on the path: the way
+to time another tree's kernel in the same process layout). Prints one JSON
+line:
 
     python -m raider_tpu_torch.scripts.window_ablation [side]
 """
@@ -19,11 +26,12 @@ import sys
 import numpy as np
 import torch
 
-from raider_tpu_torch.delay.pallas_window import (integrate_rays_windowed, prepare_windowed,
-                                                  window_integrate)
+from raider_tpu_torch.delay.pallas_window import (WX, integrate_rays_windowed, pair_cubes,
+                                                  prepare_windowed, window_integrate)
 from raider_tpu_torch.delay.raytrace import (_PLAN_BUCKET, _pad_group_plan, build_group_plan,
                                              integrate_rays, pack_cubes)
-from raider_tpu_torch.scripts import card, cuda_ms
+from raider_tpu_torch import kernels
+from raider_tpu_torch.scripts import burst_ms, card, cuda_ms, device_ms
 from raider_tpu_torch.utils import require_device
 
 SIDE = 1000
@@ -31,8 +39,11 @@ GRID = (50, 400, 400)
 TOL = 1e-5
 
 
-def build_scene(side: int = SIDE, grid=GRID, device='cuda', seed: int = 0) -> dict:
-    """The ablation's cube, rays and padded plan; rays built on the device."""
+def build_scene(side: int = SIDE, grid=GRID, device='cuda', seed: int = 0, pixels=None,
+                y_span=(18.5, 21.5), x_span=(-1.5, 1.5)) -> dict:
+    """The ablation's cube, rays and padded plan; rays built on the device.
+    ``pixels`` (rows, columns) of the output grid, spread over ``y_span`` and
+    ``x_span`` degrees (default: side x side over the ablation's spans)."""
     dev = require_device(device)
     rng = np.random.default_rng(seed)
     nz, ny, nx = grid
@@ -43,9 +54,10 @@ def build_scene(side: int = SIDE, grid=GRID, device='cuda', seed: int = 0) -> di
     hydro = torch.as_tensor(rng.uniform(50.0, 300.0, (nz, ny, nx)).astype(np.float32), device=dev)
 
     heights = zs.copy()
-    n = side * side
-    y0 = torch.as_tensor(np.repeat(np.linspace(18.5, 21.5, side), side), device=dev)
-    x0 = torch.as_tensor(np.tile(np.linspace(-1.5, 1.5, side), side), device=dev)
+    nyo, nxo = pixels or (side, side)
+    n = nyo * nxo
+    y0 = torch.as_tensor(np.repeat(np.linspace(*y_span, nyo), nxo), device=dev)
+    x0 = torch.as_tensor(np.tile(np.linspace(*x_span, nxo), nyo), device=dev)
     zen_np = np.deg2rad(rng.uniform(30.0, 40.0, n))
     zen = torch.as_tensor(zen_np, device=dev)
     azi = torch.as_tensor(0.7 + rng.uniform(-0.01, 0.01, n), device=dev)
@@ -70,7 +82,7 @@ def build_scene(side: int = SIDE, grid=GRID, device='cuda', seed: int = 0) -> di
     return dict(wet=wet, hydro=hydro, ys=ys, xs=xs, zs=zs, heights=heights,
                 bnd_y=bnd_y, bnd_x=bnd_x, bnd_z=bnd_z, low=low, high=high, d2=d2,
                 ray_len=ray_len, re=re, per_level_max=per_level_max, hstep_max=hstep_max,
-                plan=plan, shape=(side, side))
+                plan=plan, shape=(nyo, nxo))
 
 
 def windowed_args(sc: dict) -> tuple:
@@ -114,13 +126,23 @@ def run(sc: dict, say=print) -> dict:
                finite=float((torch.isfinite(w_w) & torch.isfinite(h_w)).float().mean()))
     if dev.type == 'cuda':
         b = prepare_windowed(*windowed_args(sc), device=dev)
+        nx = sc['wet'].shape[2]
+        nxp = max(-(-nx // 128) * 128, WX)
+        pads = lambda: [torch.nn.functional.pad(c, (0, nxp - nx)).contiguous()
+                        for c in (sc['wet'], sc['hydro'])]
         rec.update(
             wy=b.wy,
             brick_pack_ms=cuda_ms(lambda: pack_cubes(sc['wet'], sc['hydro'], grouped=True)),
             brick_ms=cuda_ms(lambda: brick(sc, table, mode)),
             window_ms=cuda_ms(lambda: integrate_rays_windowed(*windowed_args(sc), device=dev)),
             window_prepare_ms=cuda_ms(lambda: prepare_windowed(*windowed_args(sc), device=dev)),
-            window_kernel_ms=cuda_ms(lambda: window_integrate(b)))
+            window_kernel_ms=cuda_ms(lambda: window_integrate(b)),
+            window_kernel_device_ms=device_ms(lambda: window_integrate(b),
+                                              'window_integrate_kernel')[1],
+            window_kernel_burst_ms=burst_ms(lambda: window_integrate(b)),
+            cube_pairs_ms=cuda_ms(lambda: pair_cubes(sc['wet'], sc['hydro'], dev)),
+            cube_pads_ms=cuda_ms(pads),
+            kernels=kernels.__file__)
     say(json.dumps(rec))
     if not rel < TOL:
         raise AssertionError(f'windowed kernel mismatch: max-rel {rel} >= {TOL}')

@@ -19,6 +19,7 @@ import pytest
 import torch
 
 from raider_tpu_torch import kernels
+from raider_tpu_torch.delay import pallas_window as pw
 from raider_tpu_torch.delay.pallas_window import (integrate_rays_windowed, prepare_windowed,
                                                   window_integrate, window_integrate_ref)
 from raider_tpu_torch.delay import raytrace
@@ -26,9 +27,11 @@ from raider_tpu_torch.delay.raytrace import (build_group_plan, integrate_bricks,
                                              integrate_bricks_ref, pack_cubes)
 from raider_tpu_torch.ops.ztd import ztd_totals, ztd_totals_ref
 from raider_tpu_torch.scripts import (brick_ablation, contract_ablation, group_ablation,
-                                      kernel_profile, probe_f16, window_ablation, ztd_layouts)
+                                      kernel_profile, probe_f16, window_ablation,
+                                      window_kernel_ablation, ztd_layouts)
 from _contract_cases import CASES, SPEC as K1_SPEC, contract_case
 from _group_cases import launch_shape as merged_launch_shape, profile_groups
+from _window_cases import boundary_batch, kernel_constants as window_kernel_constants
 
 K1, K2, K3 = 0.776, 0.233, 3.75e3
 
@@ -348,8 +351,7 @@ def test_window_kernel_matches_twin(cuda, case):
     assert kernels.LAUNCHES['window_integrate'] == before + 1
     rw, rh = window_integrate_ref(b)
     for a, r in ((w, rw), (h, rh)):
-        assert torch.equal(torch.isnan(a), torch.isnan(r))
-        assert _rel(a, r) <= 1e-5
+        _bitwise(a, r)
     assert torch.isnan(w).any() == (case == 'bad_rays')
 
 
@@ -363,6 +365,94 @@ def test_window_entry_point_defaults_to_the_card(cuda):
     table, mode = pack_cubes(sc['wet'], sc['hydro'], grouped=True)
     bw, bh = window_ablation.brick(sc, table, mode)
     assert window_ablation.max_rel(w, bw) < 1e-5 and window_ablation.max_rel(h, bh) < 1e-5
+
+
+def _window_case(device, case: str):
+    """A batch of kernel B3 for ``case``: a cube width that is no multiple
+    of 128, the z clip off, a plan with all-padding groups, a tile spread
+    admitted at WY = 40, the phase-4 cube's width, the rays within ulps of
+    cell boundaries."""
+    if case == 'boundary':
+        return boundary_batch(device)
+    kw = dict(nx_ragged=dict(side=96, grid=(20, 60, 150)),
+              no_z_clip=dict(side=96, grid=(20, 60, 60)),
+              all_padding=dict(side=96, grid=(50, 60, 60)),
+              wy40=dict(side=0, grid=(20, 200, 300), pixels=(16, 64), y_span=(18.5, 20.75)),
+              cube400=dict(side=96, grid=(20, 400, 400)))[case]
+    sc = window_ablation.build_scene(device=device, seed=5, **kw)
+    return prepare_windowed(*window_ablation.windowed_args(sc), z_clip=case != 'no_z_clip',
+                            device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', ['nx_ragged', 'no_z_clip', 'all_padding', 'wy40', 'cube400',
+                                  'boundary'])
+def test_window_kernel_edge_cases(cuda, case):
+    """B3 bit for bit against its twin, equal NaN masks, at the launch shape
+    its launcher derives: the source's rays a block and stage count."""
+    b = _window_case(cuda, case)
+    assert b is not None
+    kc = window_kernel_constants()
+    shape = pw.window_launch_shape(b)
+    assert (shape['threads'], shape['stages']) == (kc['rays'], kc['stages'])
+    assert 0 < shape['smem_bytes'] <= 232_448
+    if case == 'all_padding':
+        assert b.pad.all(1).any()
+    if case == 'wy40':
+        assert b.wy == 40
+    before = kernels.LAUNCHES['window_integrate']
+    w, h = window_integrate(b)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES['window_integrate'] == before + 1
+    rw, rh = window_integrate_ref(b)
+    _bitwise(w, rw)
+    _bitwise(h, rh)
+    assert bool(torch.isfinite(w).any()) and b.z_clip == (case != 'no_z_clip')
+
+
+@pytest.mark.cuda
+def test_window_launch_shape_refuses_what_does_not_fit(cuda):
+    """B3's shared memory is the warps' rings, the schedule (16 words a
+    sample, the fetches) and the tile's anchors; the launcher refuses more
+    ring slots than a byte indexes or a block's shared memory holds, an
+    empty ring or schedule, and more fetches or groups than the schedule's
+    16-bit fields hold."""
+    rays = window_kernel_constants()['rays']
+    assert kernels.window_integrate_shape(33, 50, 392, 12) == \
+        (rays, 4 * (33 * rays + 50 * 16 + 392 + 24))
+    for args in ((256, 50, 392, 12), (255, 2000, 392, 12), (0, 50, 392, 12), (33, 0, 392, 12),
+                 (33, 50, 1 << 16, 12), (33, 50, 392, 1 << 16)):
+        with pytest.raises(ValueError):
+            kernels.window_integrate_shape(*args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', ['misaligned', 'huge_ring'])
+def test_window_kernel_refuses_what_it_cannot_fit(cuda, case):
+    """An operand that is not 16-byte aligned, or a plan whose ring does not
+    fit a block (60 levels sampled twice over: every row stays resident from
+    its first reader to its second, 480 slots), raises and launches
+    nothing."""
+    if case == 'misaligned':
+        b = _window_case(cuda, 'nx_ragged')
+        buf = torch.empty(b.lo.numel() + 1, dtype=torch.float32, device=cuda)
+        lo = buf[1:].view(b.lo.shape)
+        lo.copy_(b.lo)
+        b.lo = lo
+    else:
+        sc = window_ablation.build_scene(32, grid=(61, 60, 60), device=cuda, seed=5)
+        b = prepare_windowed(*window_ablation.windowed_args(sc), device=cuda)
+        for k in ('lvl', 'frac', 'wa_lvl', 'wa', 'wb_lvl', 'wb', 'zlo', 'zinv', 'pad', 'dzo'):
+            setattr(b, k, np.tile(getattr(b, k), (2, 1)))
+        b.za = np.tile(b.za, 2)
+        b.ay, b.ax = (a.repeat(1, 2).contiguous() for a in (b.ay, b.ax))
+        with pytest.raises(ValueError):
+            pw.window_launch_shape(b)
+    before = kernels.LAUNCHES['window_integrate']
+    with pytest.raises(RuntimeError):
+        window_integrate(b)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES['window_integrate'] == before
 
 
 @pytest.mark.cuda
@@ -675,8 +765,12 @@ def test_failed_build_raises_and_never_runs_a_twin(cuda, tmp_path, monkeypatch):
         raise AssertionError('a twin ran for CUDA tensors')
 
     for mod, name in ((raytrace, 'integrate_bricks_ref'), (kernel_profile, 'contract_ref'),
-                      (kernel_profile, 'group_rows_ref'), (kernel_profile, 'group_merged_ref')):
+                      (kernel_profile, 'group_rows_ref'), (kernel_profile, 'group_merged_ref'),
+                      (pw, 'window_integrate_ref')):
         monkeypatch.setattr(mod, name, twin_ran)
+    b = _window_case(cuda, 'nx_ragged')
+    with pytest.raises(RuntimeError, match='nvcc failed'):
+        window_integrate(b)
     (table, deq), rays, plan, ys, xs, zs = _brick_case(cuda, n_rays=64, mode='brick_i16')
     with pytest.raises(RuntimeError, match='nvcc failed'):
         integrate_bricks(table, *rays, plan, ys, xs, zs, deq=deq)
@@ -942,6 +1036,26 @@ def test_group_ablations_apply_to_the_kernel_source(name):
     old, new = group_ablation.ABLATIONS[name]
     out = brick_ablation.ablated_source(name, group_ablation.SOURCE, group_ablation.ABLATIONS)
     assert src.count(old) == 1 and out == src.replace(old, new) != src
+
+
+@pytest.mark.parametrize('name', sorted(window_kernel_ablation.ABLATIONS))
+def test_window_kernel_ablations_apply_to_the_kernel_source(name):
+    """Each ablation of scripts/window_kernel_ablation.py still finds each
+    line of csrc/window_integrate.cu it replaces, once."""
+    src = (kernels.CSRC / window_kernel_ablation.SOURCE).read_text()
+    edits = window_kernel_ablation.ABLATIONS[name]
+    want = src
+    for old, new in edits if isinstance(edits, list) else [edits]:
+        assert src.count(old) == 1
+        want = want.replace(old, new)
+    out = brick_ablation.ablated_source(name, window_kernel_ablation.SOURCE,
+                                        window_kernel_ablation.ABLATIONS)
+    assert out == want != src
+
+
+def test_window_kernel_ablation_needs_the_card():
+    with pytest.raises(ValueError, match='CUDA'):
+        window_kernel_ablation.run('cpu')
 
 
 def test_group_ablation_needs_the_card():

@@ -33,6 +33,7 @@ from raider_tpu_torch.delay import raytrace as t_rt
 from raider_tpu_torch.scripts import window_ablation
 
 from tests.test_pallas_window import make_scene
+from _window_cases import boundary_points
 
 RTOL = 2e-6
 
@@ -160,67 +161,23 @@ def test_window_anchors_match_jax(name):
     assert (j[2] >= 0).any()
 
 
-class _Plan:
-    def __init__(self, **kw):
-        self.__dict__.update(kw)
-
-
 def test_window_anchors_at_cell_boundaries():
     """Points within a few ulps of cell boundaries, one per tile, on an axis
     whose step has a float32 reciprocal unlike float32(1/step). Group 0 takes
     them at f = 0 (the lerp is exact), chosen where a true division and a
     multiply by the reciprocal pick different cells; group 1 lerps to them at
     f = 0.37 from ends where the fused and the separately rounded lerp pick
-    different cells."""
-    rng = np.random.default_rng(11)
-    ny = 64
-    step = next(float(s) for s in rng.uniform(0.005, 0.05, 4000)
-                if np.float32(1.0 / s) != np.float32(1.0) / np.float32(s))
-    ys = step * np.arange(ny)
-    yparams = t_pw._uniform_params(ys)
-    s32 = np.float32(yparams[2])
-    rec32 = np.float32(1.0) / s32
-    # float32 neighbours (up to 3 ulps) of the cell boundaries k * step
-    k = rng.integers(1, ny - 2, 20000)
-    cand = (k * s32).astype(np.float32)
-    for _ in range(3):
-        cand = np.where(rng.random(k.size) < 0.5, np.nextafter(cand, np.float32(np.inf)),
-                        np.nextafter(cand, np.float32(0.0))).astype(np.float32)
-    true_cell = np.floor(cand / s32)
-    pick0 = cand[true_cell != np.floor(cand * rec32)][:32]
-    # the last float32 below each boundary (as the multiply locates it),
-    # then lerp ends whose exact lerp lies half an ulp above it
-    below = (k * s32).astype(np.float32)
-    for _ in range(6):
-        below = np.where(np.floor(below * rec32) >= k, np.nextafter(below, np.float32(0.0)),
-                         below).astype(np.float32)
-        above = np.nextafter(below, np.float32(np.inf))
-        below = np.where(np.floor(above * rec32) < k, above, below).astype(np.float32)
-    f = np.float32(0.37)
-    target = below.astype(np.float64) + 0.5 * (np.nextafter(below, np.float32(np.inf)) - below)
-    lo_c = (below * rng.uniform(0.0, 0.5, k.size)).astype(np.float32)
-    hi_c = (lo_c + (target - lo_c) / np.float64(f)).astype(np.float32)
-    fused = (lo_c.astype(np.float64) + np.float64(f) * (hi_c - lo_c).astype(np.float64)).astype(np.float32)
-    split = (lo_c + f * (hi_c - lo_c)).astype(np.float32)
-    diff = np.floor(fused * rec32) != np.floor(split * rec32)
-    lo1, hi1 = lo_c[diff][:32], hi_c[diff][:32]
-    assert pick0.size >= 8 and lo1.size >= 8
-    n_tiles = pick0.size + lo1.size
-    ly = np.concatenate([pick0, lo1]).repeat(t_pw.TILE)
-    hy = np.concatenate([pick0, hi1]).repeat(t_pw.TILE)
-    x = np.full(ly.size, -117.9, np.float32)
-    low = np.stack([ly, x, np.zeros_like(x)], -1)[None]
-    high = np.stack([hy, x, np.full_like(x, 100.0)], -1)[None]
-    plan = _Plan(lvl=np.zeros((2, 1), np.int32), frac=np.array([[0.0], [f]]),
-                 pad=np.zeros((2, 1), bool))
-    xparams = t_pw._uniform_params(-118.0 + 0.01 * np.arange(140))
-    d2 = np.zeros((1, ly.size), np.float32)
-    re = np.full(ly.size, 6371000.0, np.float32)
-    j, t = _anchors_both(low, high, d2, re, plan, plan, n_tiles, yparams, xparams)
+    different cells (``tests/_window_cases.py``, ``boundary_points``)."""
+    bp = boundary_points(np.random.default_rng(11))
+    low, high, plan, pick0 = bp['low'], bp['high'], bp['plan'], bp['pick0']
+    xparams = t_pw._uniform_params(bp['xs'])
+    d2 = np.zeros((1, low.shape[1]), np.float32)
+    re = np.full(low.shape[1], 6371000.0, np.float32)
+    j, t = _anchors_both(low, high, d2, re, plan, plan, bp['n_tiles'], bp['yparams'], xparams)
     for a, b in zip(t, j):
         np.testing.assert_array_equal(a, b)
     # the JAX pre-pass, and so the port, did not take a true division
-    assert (t[0][:pick0.size, 0] != np.floor(pick0 / s32)).all()
+    assert (t[0][:pick0.size, 0] != np.floor(pick0 / bp['s32'])).all()
 
 
 def test_cpu_wrapper_runs_the_twin():
