@@ -19,7 +19,8 @@ Phases, each printing one line; any failure exits non-zero:
   3. main path, through the user entry points: a synthetic HRRR-sized
      weather model (50 native levels, 400x400) processed by
      ``WeatherModel.load(device='cuda')``, then ``tropo_delay`` for a zenith
-     and a raytraced request over a ~1.2M-pixel grid at three heights. The
+     and a raytraced request over a ~1.2M-pixel grid at three heights (each
+     step of ``load`` timed). The
      kernel launch counts of this phase must be >= 1, the cubes mostly
      finite, and a 64x64 sub-grid of the raytraced 0 m slice must match a
      plain-torch recomputation; then B2 is timed on the whole 0 m slice's
@@ -44,8 +45,27 @@ Phases, each printing one line; any failure exits non-zero:
      picks: bench's midcube (50x640x640, brick_i16, kernel K4) against
      pack16, and the HRRR CONUS grid (50x1059x1799, pack16_i16) against
      pack4, on 1M rays each.
+  8. weather models from their raw files (netCDF-3, written by
+     ``scripts/raw_weather.py`` in each reader's format; the card's machine
+     has no h5py), through the user's path ``get_wm_by_name`` -> ``load`` ->
+     ``to_dataset`` -> ``tropo_delay``: (a) HRRR CONUS at its native size
+     (50 levels x 1059 x 1799 on its Lambert conformal grid), each step of
+     ``load`` timed in a second load, B1 bit for bit against its twin on the model's fields;
+     (b) a zenith and a raytraced request on that LCC cube over ~1.2M pixels
+     of an AOI in Kansas at three heights, seen from an orbit whose ground
+     track runs ~300 km west of it, with phase 3's finite-share gates; the
+     0 m slice's 64x64 sub-grid against a float64 reference from the same
+     geometry that reads neither table (an 8-corner gather of the float64
+     cubes at every quadrature point: 1e-5 m, or 1e-4 m for an int16
+     table), and a brick mode also against its twin; (c) every other
+     family (ERA5, ERA5T, ERAI, HRES, GMAO, MERRA2, NCMR, WRF over a
+     20 x 20 deg domain, HRRR-AK on a 400 x 400 cut of its
+     polar-stereographic grid) at its native level count: B1 against its
+     twin, a zenith request; (d) the LCC, polar stereographic and UTM
+     forward and inverse on 2^20 points on the card against the CPU
+     (1e-8 m, 1e-10 deg).
 
-Phases 3 to 7 each start with the launch counts at 0 and read them when
+Phases 3 to 8 each start with the launch counts at 0 and read them when
 their path ends; the comparisons after that do not count. The line before
 the last is a JSON record of the kernels (with each kernel's bound: the
 least time the card could take for the same work, from the bytes each
@@ -54,8 +74,10 @@ operations at 67 TFLOP/s, whichever is larger); the last line is
 ``{"ok": true, "device": {...}}``. Data are random, made from a fixed seed.
 """
 
+import contextlib
 import datetime as dt
 import json
+import os
 import re
 import sys
 import time
@@ -64,7 +86,7 @@ import numpy as np
 
 SEED = 0
 B2_TOL = 1e-5      # max relative difference, kernel B2 vs twin (finite rays)
-SUBGRID_TOL = 1e-5  # metres, raytraced 0 m slice vs twin recomputation
+SUBGRID_TOL = 1e-5  # metres, raytraced 0 m slice vs its twin or a float64 reference
 BBOX = [18.5, 21.5, 3.5, 6.0]
 HEIGHTS = [0.0, 500.0, 1500.0]
 # sizes: the benchmark headline's (bench.py:80-86)
@@ -84,10 +106,33 @@ PROFILE_GRID = (50, 400, 400)    # phase 6: the kernel profile's scene
 PROFILE_RAYS = 1_000_000
 PROFILE_VARIANTS = ('prod', 'tensor', 'pallas', 'pallas2', 'prodmerged', 'prodpallas', 'prodi16')
 K_TOL = 1e-5       # max relative difference, kernels K1-K4 vs their twins
-I16_TOL = 1e-4     # metres, an int16 table vs the exact one on the same rays
+I16_TOL = 1e-4     # metres, an int16 table vs an exact one or float64 on the same rays
 MID_GRID = (50, 640, 640)        # phase 7: bench.py's midcube
 BIG_GRID = (50, 1059, 1799)      # phase 7: bench.py's bigcube (HRRR CONUS)
 LARGE_RAYS = 1_000_000
+WX_BOX = [36.0, 39.0, -100.0, -97.5]  # phase 8b AOI (Kansas), inside HRRR CONUS
+WX_TRACK = (-103.4, 37.5)        # phase 8b ground track: longitude, latitude at t = 0
+WX_HEIGHTS = [0.0, 500.0, 1500.0]
+ZENITH_SPACING_M = 1000.0        # phase 8c zenith requests
+# phase 8c: (model, time, query bounds SNWE or None for the whole grid, zenith AOI SNWE)
+_WX_SNWE, _WX_AOI = [26.0, 44.0, -109.0, -91.0], [33.0, 37.0, -102.0, -98.0]
+WX_FAMILIES = (
+    ('ERA5', dt.datetime(2020, 1, 30, 12), _WX_SNWE, _WX_AOI),
+    ('ERA5T', dt.datetime(2020, 1, 30, 12), _WX_SNWE, _WX_AOI),
+    ('ERAI', dt.datetime(2018, 1, 30, 12), _WX_SNWE, _WX_AOI),
+    ('HRES', dt.datetime(2018, 1, 30, 12), _WX_SNWE, _WX_AOI),
+    ('GMAO', dt.datetime(2020, 1, 30, 12), _WX_SNWE, _WX_AOI),
+    ('MERRA2', dt.datetime(2020, 1, 30, 12), _WX_SNWE, _WX_AOI),
+    ('NCMR', dt.datetime(2018, 7, 30, 12), _WX_SNWE, _WX_AOI),
+    ('WRF', dt.datetime(2020, 1, 30, 12), None, _WX_AOI),
+    ('HRRRAK', dt.datetime(2020, 1, 30, 15), None, [60.6, 61.8, -151.4, -148.4]),
+)
+# the steps of WeatherModel.load that phases 3 and 8a time, in a load of their own
+WX_STEPS = ('load_weather', '_get_heights', '_find_e', '_uniform_in_z', '_check_for_nans',
+            '_get_wet_refractivity', '_get_hydro_refractivity', '_adjust_grid', '_get_ztd')
+CRS_POINTS = 1 << 20             # phase 8d
+CRS_TOL_M = 1e-8                 # card vs CPU, projected coordinates
+CRS_TOL_DEG = 1e-10              # card vs CPU, longitude and latitude
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM published peaks (NVIDIA data sheet)
 F32_FLOP_PER_S = 67e12
 
@@ -415,12 +460,18 @@ def phase_main_path(torch, kernels, b2_incoherent_ms):
     stages['raytrace_s'] = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    steps_model = smoke_model_class()()
+    steps_model.setTime(when)
+    steps = step_seconds(torch, steps_model)
+    del steps_model
     # the model's ZTD step alone, B1 reading its contiguous (y, x, z) fields
     ztd = dict(ms=cuda_ms(model._get_ztd))
     ztd['device_ms'], ztd['kernel_device_ms'] = device_ms(model._get_ztd, 'ztd_totals_kernel')
 
     nzc = tuple(np.shape(ds_wm['wet'].data))
     say('main path stages (s): ' + ', '.join(f'{k} {v:.3f}' for k, v in stages.items())
+        + '; weather-model steps (s, a second load, synchronized around each): '
+        + json.dumps({k: round(v, 4) for k, v in steps.items()})
         + f'; weather cube {nzc}; peak device memory {peak_gb:.2f} GB; launches {launches}; '
         f'_get_ztd alone: {ztd["ms"]:.3f} ms (device: all kernels {ztd["device_ms"]} ms, '
         f'B1 {ztd["kernel_device_ms"]} ms)')
@@ -857,6 +908,394 @@ def phase_large(torch, kernels):
     return launches, res
 
 
+@contextlib.contextmanager
+def timed_steps(torch, model, names):
+    """While open, ``model``'s pipeline steps record their seconds (the
+    device synchronized before and after) into the dict it yields."""
+    seconds = {}
+
+    def wrap(name, fn):
+        def timed(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            seconds[name] = seconds.get(name, 0.0) + time.perf_counter() - t0
+            return out
+        return timed
+
+    for name in names:
+        setattr(model, name, wrap(name, getattr(model, name)))
+    try:
+        yield seconds
+    finally:
+        for name in names:
+            delattr(model, name)
+
+
+def step_seconds(torch, model) -> dict:
+    """Seconds of each step of a ``model.load`` of its own, the device
+    synchronized before and after each step (so the stage times around
+    the user's call carry no synchronization)."""
+    with timed_steps(torch, model, WX_STEPS) as steps:
+        model.load(device=DEVICE)
+    return steps
+
+
+def b1_against_twin(torch, model) -> bool:
+    """B1's output inside ``load`` (the model's ZTD cubes) against the twin
+    on the same fields, bit for bit."""
+    from raider_tpu_torch.ops.ztd import ztd_totals_ref
+
+    w, h = ztd_totals_ref(*(torch.movedim(a, -1, 0) for a in (model._t, model._p, model._e)),
+                          torch.as_tensor(model._zs, dtype=torch.float32, device=DEVICE),
+                          float(model._k1), float(model._k2), float(model._k3))
+    return bool(torch.equal(torch.movedim(w, 0, -1), model._wet_ztd)
+                and torch.equal(torch.movedim(h, 0, -1), model._hydrostatic_ztd))
+
+
+def track_orbit(lon_deg: float, lat_deg: float):
+    """A 700 km polar orbit whose ground track runs along ``lon_deg``,
+    over ``lat_deg`` at its reference time."""
+    from raider_tpu_torch.geometry.orbit import Orbit
+
+    tt = np.arange(-600.0, 601.0, 30.0)
+    r_orb = 6378137.0 + 700e3
+    ang = 2.0 * np.pi / 5800.0 * tt + np.deg2rad(lat_deg)
+    lon = np.deg2rad(lon_deg)
+    pos = np.stack([r_orb * np.cos(ang) * np.cos(lon), r_orb * np.cos(ang) * np.sin(lon),
+                    r_orb * np.sin(ang)], -1)
+    return Orbit(times=tt, pos=pos, vel=np.gradient(pos, 30.0, axis=0),
+                 ref_time=dt.datetime(2021, 7, 1, 12, 0, 0))
+
+
+def cube_finite(name, ds, n_heights, min_pixels) -> dict:
+    w, h = np.asarray(ds['wet'].data), np.asarray(ds['hydro'].data)
+    fin = float(np.mean(np.isfinite(w) & np.isfinite(h)))
+    check(w.shape[0] == n_heights and w.shape[1] * w.shape[2] >= min_pixels,
+          f'{name} cube {w.shape} too small')
+    check(fin >= 0.99, f'{name} finite share {fin} < 0.99')
+    return dict(shape=list(w.shape), finite=fin, mean_wet=float(np.nanmean(w[0])),
+                mean_hydro=float(np.nanmean(h[0])))
+
+
+def rays_f64(torch, wm, geom, flat, re_local):
+    """A float64 reference of one slice's integrate on the rays ``flat``,
+    independent of the packed and brick tables: every point of the packed
+    modes' quadrature (``build_sampling_plan``) placed on its segment with
+    the sagitta, an 8-corner gather of the float64 cubes
+    (``interp3d_points``) and the trapezoid weights, all points at once."""
+    from raider_tpu_torch.delay.raytrace import build_sampling_plan
+    from raider_tpu_torch.ops.interp import interp3d_points
+
+    g = {k: geom[k][:, flat].double() for k in ('bnd_y', 'bnd_x', 'bnd_z', 'd2', 'ray_len')}
+    lvl, frac, wa_lvl, wa, wb_lvl, wb = build_sampling_plan(geom['per_level_max'])
+    lv = torch.as_tensor(lvl, dtype=torch.int64, device=DEVICE)
+    f = torch.as_tensor(frac, dtype=torch.float64, device=DEVICE)[:, None]
+
+    def along(key):
+        lo = g[key][lv]
+        return lo + f * (g[key][lv + 1] - lo)
+
+    def weight(w, w_lvl):
+        return (torch.as_tensor(w, dtype=torch.float64, device=DEVICE)[:, None]
+                * g['ray_len'][torch.as_tensor(w_lvl, dtype=torch.int64, device=DEVICE)])
+
+    py, px, pz = along('bnd_y'), along('bnd_x'), along('bnd_z')
+    hbar = 0.5 * (g['bnd_z'][lv] + g['bnd_z'][lv + 1])
+    pz = pz - f * (1.0 - f) * g['d2'][lv] / (2.0 * (re_local.double() + hbar))
+    zs = np.asarray(wm.zs)
+    pz = pz.clamp(float(zs[0]), float(zs[-1]))
+    rl = weight(wa, wa_lvl) + weight(wb, wb_lvl)
+    ys_k, xs_k = wm.ys - wm.ys[0], wm.xs - wm.xs[0]
+    return [(1e-6 * rl * interp3d_points(wm.field(k, torch.float64), ys_k, xs_k, zs,
+                                         py, px, pz)).sum(0) for k in ('wet', 'hydro')]
+
+
+def subgrid_check(torch, wm, ds_r, los, zref):
+    """The 0 m slice of a raytraced request on a 64x64 sub-grid against
+    references from the same geometry: the brick twin (kernel B2/K4's) for
+    a brick mode, and for every mode the float64 reference of
+    :func:`rays_f64`. Returns (mode, max |diff| to the twin or None, to
+    the float64 reference, seconds of the slice's geometry, ms of its
+    integrate)."""
+    from raider_tpu_torch.delay import engine
+    from raider_tpu_torch.delay.raytrace import (integrate_bricks_ref, integrate_rays,
+                                                 pack_cubes, slice_plan)
+    from raider_tpu_torch.geodesy import get_Re
+    from raider_tpu_torch.scripts import cuda_ms
+
+    ys_o, xs_o = np.asarray(ds_r.coords['y'].data), np.asarray(ds_r.coords['x'].data)
+    xx, yy = np.meshgrid(xs_o, ys_o)
+    lat = torch.as_tensor(yy.ravel(), dtype=torch.float64, device=DEVICE)
+    lon = torch.as_tensor(xx.ravel(), dtype=torch.float64, device=DEVICE)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    geom = engine._slice_geometry(wm, lat, lon, WX_HEIGHTS[0], los, zref)
+    torch.cuda.synchronize()
+    geom_s = time.perf_counter() - t0
+    rows = np.linspace(0, ys_o.size - 1, 64).round().astype(int)
+    cols = np.linspace(0, xs_o.size - 1, 64).round().astype(int)
+    flat = torch.as_tensor((rows[:, None] * xs_o.size + cols[None, :]).ravel(), device=DEVICE)
+    main = [np.asarray(ds_r[k].data)[0][rows[:, None], cols[None, :]].ravel()
+            for k in ('wet', 'hydro')]
+
+    def err(w, h):
+        return float(max(np.max(np.abs(w.cpu().numpy() - main[0])),
+                         np.max(np.abs(h.cpu().numpy() - main[1]))))
+
+    cw, ch = wm.field('wet', torch.float32), wm.field('hydro', torch.float32)
+    ys_k, xs_k = wm.ys - wm.ys[0], wm.xs - wm.xs[0]
+    table, mode = pack_cubes(cw, ch, grouped=True)
+    twin_err = None
+    if mode in ('brick', 'brick_i16'):
+        keys = ('bnd_y', 'bnd_x', 'bnd_z', 'd2', 'ray_len')
+        plan = slice_plan(cw.shape, np.float32 if mode == 'brick' else np.int16, ys_k, xs_k,
+                          wm.zs, geom['per_level_max'], geom['heights'], geom['hstep_max'])
+        tab, deq = table if mode == 'brick_i16' else (table, None)
+        twin_err = err(*integrate_bricks_ref(tab, *[geom[k][:, flat].float().contiguous()
+                                                    for k in keys],
+                                             get_Re(lat[flat]).float(), plan, ys_k, xs_k,
+                                             wm.zs, deq=deq))
+    ref_err = err(*rays_f64(torch, wm, geom, flat, get_Re(lat[flat])))
+    full = [geom[k].float().contiguous() for k in ('bnd_y', 'bnd_x', 'bnd_z', 'd2', 'ray_len')]
+    slice_ms = cuda_ms(lambda: integrate_rays(
+        cw, ch, ys_k, xs_k, wm.zs, *full, get_Re(lat).float(), geom['per_level_max'],
+        packed2d=table, mode=mode, heights=geom['heights'], hstep_max=geom['hstep_max']), reps=3)
+    return mode, twin_err, ref_err, geom_s, slice_ms
+
+
+def phase_hrrr(torch, kernels, tmp, card_s):
+    """Phase 8a and 8b: HRRR CONUS from its raw file at native size, then
+    the headline's zenith and raytraced requests on its LCC cube."""
+    from raider_tpu_torch.delay import engine
+    from raider_tpu_torch.geometry import BoundingBox, Raytracing, Zenith
+    from raider_tpu_torch.scripts import cuda_ms, raw_weather
+    from raider_tpu_torch.wx.base import make_raw_weather_data_filename
+    from raider_tpu_torch.wx.registry import get_wm_by_name
+
+    when = dt.datetime(2021, 7, 1, 12, 0, 0)
+    model = get_wm_by_name('HRRR')[1]()
+    model.setTime(when)
+    model.set_wmLoc(tmp)
+    raw = make_raw_weather_data_filename(tmp, model.Model(), when)
+    sec = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    raw_weather.write_hrrr(raw, seed=SEED, device=DEVICE)
+    sec['write_raw_file'] = time.perf_counter() - t0
+    gb = os.path.getsize(raw) / 1e9
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    model.load(device=DEVICE)
+    torch.cuda.synchronize()
+    sec['load'] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ds_wm = model.to_dataset()
+    torch.cuda.synchronize()
+    sec['to_dataset'] = time.perf_counter() - t0
+    peak_load = torch.cuda.max_memory_allocated() / 1e9
+
+    aoi_z = BoundingBox(WX_BOX, cube_spacing_in_m=SPACING_M)
+    t0 = time.perf_counter()
+    ds_z, _ = engine.tropo_delay(when, ds_wm, aoi_z, Zenith(), height_levels=WX_HEIGHTS,
+                                 device=DEVICE)
+    torch.cuda.synchronize()
+    sec['zenith_request'] = time.perf_counter() - t0
+    los = Raytracing(orbit=track_orbit(*WX_TRACK), time=when)
+    aoi_r = BoundingBox(WX_BOX, cube_spacing_in_m=SPACING_M)
+    t0 = time.perf_counter()
+    ds_r, _ = engine.tropo_delay(when, ds_wm, aoi_r, los, height_levels=WX_HEIGHTS, device=DEVICE)
+    torch.cuda.synchronize()
+    sec['raytraced_request'] = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    steps_model = get_wm_by_name('HRRR')[1]()
+    steps_model.setTime(when)
+    steps_model.set_wmLoc(tmp)
+    steps = step_seconds(torch, steps_model)
+    del steps_model
+    sec['read_raw_file'] = steps['load_weather'] - steps['_get_heights']
+    sec.update(steps)
+
+    shape = tuple(model._t.shape)
+    equal = b1_against_twin(torch, model)
+    ztd_ms = cuda_ms(model._get_ztd)
+    say(f'phase 8a [{card_s}] HRRR CONUS from its raw file ({gb:.3f} GB netCDF-3, '
+        f'{raw_weather.DOMAINS["HRRR"][0]} native levels): model (y, x, z) {shape}, '
+        f'{model.getProjection().to_cf()["grid_mapping_name"]}, no query bounds (the whole '
+        f'grid); seconds (the steps and the read from a second load, synchronized around '
+        f'each step) ' + json.dumps({k: round(v, 4) for k, v in sec.items()})
+        + f'; peak device memory {peak_load:.2f} GB; B1 equal to its twin {equal}; '
+        f'_get_ztd alone {ztd_ms:.3f} ms')
+    check(equal, 'phase 8a: B1 differs from its twin on the HRRR CONUS fields')
+    check(launches['ztd_totals'] >= 1, f'B1 was not launched on the HRRR load: {launches}')
+    check(shape[:2] == raw_weather.DOMAINS['HRRR'][1][1:3], f'HRRR CONUS model grid {shape}')
+    res = dict(seconds=sec, raw_gb=gb, model_shape=list(shape), load_peak_gb=peak_load,
+               request_peak_gb=peak, get_ztd_ms=ztd_ms, b1_equal=equal)
+
+    zen = cube_finite('8b zenith', ds_z, len(WX_HEIGHTS), MIN_PIXELS)
+    ray = cube_finite('8b raytraced', ds_r, len(WX_HEIGHTS), MIN_PIXELS)
+    check(1.5 < zen['mean_hydro'] < 3.0, f'8b zenith hydrostatic delay {zen["mean_hydro"]} m')
+    slant = ray['mean_hydro'] / zen['mean_hydro']
+    check(1.0 < slant < 2.0, f'8b slant/zenith hydrostatic ratio {slant} outside 1-2')
+    wm = engine.WeatherCube(ds_wm, DEVICE)
+    mode, twin_err, ref_err, geom_s, slice_ms = subgrid_check(torch, wm, ds_r, los,
+                                                              float(wm.zs.max() - 1))
+    ref_tol = I16_TOL if mode.endswith('i16') else SUBGRID_TOL
+    inc = incidence_range(torch, los, ds_r)
+    say(f'phase 8b [{card_s}] requests on the LCC cube {tuple(np.shape(ds_wm["wet"].data))}: '
+        f'zenith {zen}, raytraced {ray} (incidence {inc[0]:.1f}-{inc[1]:.1f} deg), slant/zenith '
+        f'{slant:.4f}; the ladder chose {mode}; 0 m slice geometry {geom_s:.3f} s, integrate '
+        f'{slice_ms:.3f} ms; 64x64 sub-grid vs the float64 reference max |diff| '
+        f'{ref_err:.3e} m (bound {ref_tol:g} m), vs the brick twin {twin_err}; '
+        f'launches {launches}; peak device memory {peak:.2f} GB')
+    check(ref_err <= ref_tol, f'8b sub-grid vs the float64 reference {ref_err} m > {ref_tol} m')
+    check(twin_err is None or twin_err <= SUBGRID_TOL,
+          f'8b sub-grid twin check {twin_err} m > {SUBGRID_TOL} m')
+    check(20.0 <= inc[0] and inc[1] <= 50.0, f'8b incidence {inc} outside 20-50 deg')
+    res.update(zenith=zen, raytraced=ray, pack_mode=mode, subgrid_twin_err=twin_err,
+               subgrid_f64_err=ref_err, slice_geometry_s=geom_s, slice_integrate_ms=slice_ms,
+               incidence_deg=list(inc))
+    del model, ds_wm, wm, ds_z, ds_r
+    torch.cuda.empty_cache()
+    return launches, res
+
+
+def incidence_range(torch, los, ds_r):
+    """Min and max incidence [deg] of the request's pixels at 0 m."""
+    from raider_tpu_torch.geodesy.ellipsoid import geodetic_normal, lla2ecef
+
+    ys_o, xs_o = np.asarray(ds_r.coords['y'].data), np.asarray(ds_r.coords['x'].data)
+    lat = torch.as_tensor(ys_o[[0, 0, -1, -1]], dtype=torch.float64, device=DEVICE)
+    lon = torch.as_tensor(xs_o[[0, -1, 0, -1]], dtype=torch.float64, device=DEVICE)
+    hts = torch.zeros_like(lat)
+    xyz = torch.stack(lla2ecef(lat, lon, hts), dim=-1)
+    look = los.getLookVectors(0.0, [lon, lat, hts], xyz)
+    cosi = (look * geodetic_normal(lat, lon)).sum(-1) / look.norm(dim=-1)
+    inc = torch.rad2deg(torch.acos(cosi.abs())).cpu().numpy()
+    return float(inc.min()), float(inc.max())
+
+
+def phase_families(torch, kernels, tmp, card_s):
+    """Phase 8c: every other family from its raw file through ``load`` at its
+    native level count, B1 against its twin, a zenith request."""
+    from raider_tpu_torch.delay import engine
+    from raider_tpu_torch.geometry import BoundingBox, Zenith
+    from raider_tpu_torch.scripts import raw_weather
+    from raider_tpu_torch.wx.base import make_raw_weather_data_filename
+    from raider_tpu_torch.wx.registry import get_wm_by_name
+
+    total, res = {}, {}
+    for name, when, bounds, box in WX_FAMILIES:
+        model = get_wm_by_name(name)[1]()
+        model.setTime(when)
+        model.set_wmLoc(tmp)
+        if bounds is not None:
+            model.set_latlon_bounds(bounds)
+        raw = make_raw_weather_data_filename(tmp, model.Model(), when)
+        sec = {}
+        t0 = time.perf_counter()
+        raw_weather.write(name, raw, seed=SEED, device=DEVICE)
+        sec['write_raw_file'] = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        model.load(device=DEVICE)
+        ds_wm = model.to_dataset()
+        torch.cuda.synchronize()
+        sec['load'] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ds_z, _ = engine.tropo_delay(when, ds_wm, BoundingBox(box, cube_spacing_in_m=ZENITH_SPACING_M),
+                                     Zenith(), height_levels=WX_HEIGHTS, device=DEVICE)
+        torch.cuda.synchronize()
+        sec['zenith_request'] = time.perf_counter() - t0
+        got = dict(kernels.LAUNCHES)
+        for k, v in got.items():
+            total[k] = total.get(k, 0) + v
+        equal = b1_against_twin(torch, model)
+        zen = cube_finite(f'8c {name} zenith', ds_z, len(WX_HEIGHTS), 10_000)
+        levels = raw_weather.DOMAINS[name][0]
+        say(f'phase 8c [{card_s}] {name} ({levels} native levels, '
+            f'{model.getProjection().to_cf()["grid_mapping_name"]}): model (y, x, z) '
+            f'{tuple(model._t.shape)}; B1 equal to its twin {equal}, launches {got["ztd_totals"]}; '
+            f'zenith {zen}; seconds ' + json.dumps({k: round(v, 4) for k, v in sec.items()}))
+        check(equal, f'phase 8c: B1 differs from its twin on {name}')
+        check(got['ztd_totals'] >= 1, f'B1 was not launched on the {name} load: {got}')
+        check(1.5 < zen['mean_hydro'] < 3.0, f'8c {name} zenith hydrostatic {zen["mean_hydro"]} m')
+        res[name] = dict(levels=levels, model_shape=list(model._t.shape), b1_equal=equal,
+                         zenith=zen, seconds=sec)
+        os.remove(raw)
+        del model, ds_wm, ds_z
+    torch.cuda.empty_cache()
+    return total, res
+
+
+def phase_crs(torch, card_s):
+    """Phase 8d: the projected CRSs forward and inverse on the card against
+    the CPU, on 2^20 seeded points each."""
+    from raider_tpu_torch.geodesy import utm_crs
+    from raider_tpu_torch.scripts import cuda_ms
+    from raider_tpu_torch.wx.hrrr import HRRR_AK_PROJ, HRRR_CONUS_PROJ
+
+    rng = np.random.default_rng(SEED + 3)
+    res = {}
+    for name, crs, (w, e, s, n) in (('lcc_hrrr', HRRR_CONUS_PROJ, (-135.0, -60.0, 20.0, 55.0)),
+                                    ('polar_stereographic_hrrr_ak', HRRR_AK_PROJ,
+                                     (-180.0, 180.0, 40.0, 85.0)),
+                                    ('utm_14n', utm_crs(14), (-102.0, -96.0, 0.0, 80.0)),
+                                    ('utm_23s', utm_crs(23, south=True), (-48.0, -42.0, -80.0, 0.0))):
+        lon_h = torch.as_tensor(rng.uniform(w, e, CRS_POINTS))
+        lat_h = torch.as_tensor(rng.uniform(s, n, CRS_POINTS))
+        lon_d, lat_d = lon_h.to(DEVICE), lat_h.to(DEVICE)
+        xd, yd = crs.forward(lon_d, lat_d)
+        xh, yh = crs.forward(lon_h, lat_h)
+        err_m = float(max((xd.cpu() - xh).abs().max(), (yd.cpu() - yh).abs().max()))
+        ld, bd = crs.inverse(xh.to(DEVICE), yh.to(DEVICE))
+        lh, bh = crs.inverse(xh, yh)
+        dlon = torch.remainder(ld.cpu() - lh + 180.0, 360.0) - 180.0
+        err_deg = float(max(dlon.abs().max(), (bd.cpu() - bh).abs().max()))
+        xdd, ydd = xd, yd
+        r = dict(max_abs_m=err_m, max_abs_deg=err_deg,
+                 forward_ms=cuda_ms(lambda: crs.forward(lon_d, lat_d)),
+                 inverse_ms=cuda_ms(lambda: crs.inverse(xdd, ydd)))
+        t0 = time.perf_counter()
+        crs.forward(lon_h, lat_h)
+        r['cpu_forward_ms'] = (time.perf_counter() - t0) * 1e3
+        say(f'phase 8d [{card_s}] {name} on {CRS_POINTS} points, card vs CPU: forward max '
+            f'|diff| {err_m:.3e} m, inverse {err_deg:.3e} deg; card forward {r["forward_ms"]:.3f} ms, '
+            f'inverse {r["inverse_ms"]:.3f} ms; CPU forward {r["cpu_forward_ms"]:.1f} ms')
+        check(err_m <= CRS_TOL_M, f'8d {name}: card vs CPU {err_m} m > {CRS_TOL_M} m')
+        check(err_deg <= CRS_TOL_DEG, f'8d {name}: card vs CPU {err_deg} deg > {CRS_TOL_DEG} deg')
+        res[name] = r
+    return res
+
+
+def phase_weather_models(torch, kernels):
+    """Phase 8: weather models from raw files (8a-8c) and the CRSs (8d).
+    Returns the summed launches of its paths and its record."""
+    import shutil
+    import tempfile
+
+    from raider_tpu_torch.scripts import card
+
+    card_s = card()
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_wx_')
+    try:
+        launches, hrrr = phase_hrrr(torch, kernels, tmp, card_s)
+        fam_launches, families = phase_families(torch, kernels, tmp, card_s)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for k, v in fam_launches.items():
+        launches[k] = launches.get(k, 0) + v
+    crs = phase_crs(torch, card_s)
+    record = dict(card=card_s, hrrr_conus=hrrr, families=families, crs=crs, launches=launches)
+    say(json.dumps({'weather_models': record}))
+    return launches, record
+
+
 def main() -> int:
     import torch
 
@@ -899,14 +1338,18 @@ def main() -> int:
     launches_k, prof = phase_profile(torch, kernels)
     launches_l, large = phase_large(torch, kernels)
     say(json.dumps({'large_cubes': large}))
+    launches_wx, _ = phase_weather_models(torch, kernels)
 
     record = {'kernels': [
         {'name': 'ztd_totals', 'route': 'cuda', 'source': 'raider_tpu_torch/csrc/ztd_totals.cu',
-         'replaces': 'raider_tpu/ops/pallas_ztd.py:31', 'launches': launches['ztd_totals'],
-         **measured['ztd_totals']},
+         'replaces': 'raider_tpu/ops/pallas_ztd.py:31',
+         'launches': launches['ztd_totals'] + launches_wx['ztd_totals'],
+         'launches_phase_8': launches_wx['ztd_totals'], **measured['ztd_totals']},
         {'name': 'brick_integrate', 'route': 'cuda',
          'source': 'raider_tpu_torch/csrc/brick_integrate.cu',
-         'replaces': 'raider_tpu/delay/raytrace.py:704', 'launches': launches['brick_integrate'],
+         'replaces': 'raider_tpu/delay/raytrace.py:704',
+         'launches': launches['brick_integrate'] + launches_wx['brick_integrate'],
+         'launches_phase_8': launches_wx['brick_integrate'],
          **measured['brick_integrate'], 'ptxas': ptxas.get('f32 3x3')},
         {'name': 'window_integrate', 'route': 'cuda',
          'source': 'raider_tpu_torch/csrc/window_integrate.cu',

@@ -3,12 +3,13 @@
 The system has no learned weights: its state is the processed weather
 dataset and the orbit. These helpers duck-type the JAX package's objects
 (``.coords``/``.variables`` of items with ``.dims``, ``.data`` and
-``.attrs``; an orbit's ``times``/``pos``/``vel``/``ref_time``), so both
-packages can compute on identical inputs.
+``.attrs``; an orbit's ``times``/``pos``/``vel``/``ref_time``; a CRS's
+``to_cf()``), so both packages can compute on identical inputs.
 """
 
 import numpy as np
 
+from raider_tpu_torch.geodesy.crs import CRS, crs_from_cf
 from raider_tpu_torch.geometry.orbit import Orbit
 from raider_tpu_torch.io import Dataset, Variable
 
@@ -31,3 +32,9 @@ def orbit_from_reference(orbit) -> Orbit:
                  pos=np.array(orbit.pos, dtype=np.float64),
                  vel=np.array(orbit.vel, dtype=np.float64),
                  ref_time=orbit.ref_time)
+
+
+def crs_from_reference(crs) -> CRS:
+    """A JAX-package CRS as this package's, through its CF attributes (a UTM
+    zone number, which CF does not carry, is not kept)."""
+    return crs_from_cf(crs.to_cf())

@@ -4,9 +4,13 @@
 hands from stage to stage; a variable's ``data`` may be a numpy array or a
 torch tensor (the weather model hands its cubes over on the device).
 
-Files are optional: ``read_nc`` / ``write_nc`` import h5py inside the
-function, so the package runs on a machine without h5py as long as nothing
-touches a file. Same file schema as ``raider_tpu.io.ncdf``.
+Files: ``read_nc`` picks the format from the file's first bytes. A classic
+netCDF-3 file (``CDF\x01``, ``CDF\x02``: raw CDS/MARS downloads, WRF output,
+the raw files the readers write) is read by scipy and never touches h5py;
+anything else is HDF5-backed netCDF4, read by h5py. ``write_nc`` writes
+netCDF4 through h5py. h5py is imported inside those functions only, so the
+package reads classic files on a machine without h5py. Same file schema as
+``raider_tpu.io.ncdf``.
 """
 
 from dataclasses import dataclass, field
@@ -101,8 +105,40 @@ def _maskandscale(data, attrs: dict):
     return data
 
 
+_NC3_MAGIC = (b'CDF\x01', b'CDF\x02')
+
+
+def _read_nc3(path: Union[str, Path]) -> Dataset:
+    """A classic (netCDF-3) file, read by scipy."""
+    from scipy.io import netcdf_file
+
+    def _dec(attrs):
+        return {k: (v.decode() if isinstance(v, bytes) else v) for k, v in attrs.items()}
+
+    out = Dataset()
+    with netcdf_file(str(path), 'r', maskandscale=True, mmap=False) as f:
+        out.attrs = _dec(f._attributes)
+        dims = set(f.dimensions.keys())
+        for name, var in f.variables.items():
+            # var[...], not var[:]: a 0-d variable (a CF grid mapping) takes no slice
+            data = np.asarray(var[...] if var.data is not None else var.getValue())
+            data = data.astype(data.dtype.newbyteorder('='))  # netCDF-3 is big-endian
+            if name in dims and data.ndim == 1:
+                out.coords[name] = Variable((name,), data, _dec(var._attributes))
+            else:
+                out.variables[name] = Variable(tuple(var.dimensions), data, _dec(var._attributes))
+    return out
+
+
 def read_nc(path: Union[str, Path], group: Optional[str] = None) -> Dataset:
-    """Read an HDF5-backed netCDF4 file (optionally a sub-group)."""
+    """Read a netCDF file, optionally a sub-group of a netCDF4 one: classic
+    netCDF-3 through scipy, HDF5-backed netCDF4 through h5py."""
+    with open(path, 'rb') as fh:
+        magic = fh.read(4)
+    if magic in _NC3_MAGIC:
+        if group is not None:
+            raise ValueError(f'{path} is a classic netCDF-3 file, which has no groups')
+        return _read_nc3(path)
     import h5py
 
     out = Dataset()
@@ -130,6 +166,13 @@ def read_nc(path: Union[str, Path], group: Optional[str] = None) -> Dataset:
             for i in range(obj.ndim):
                 scales = obj.dims[i]
                 dims.append(scales[0].name.rsplit('/', 1)[-1] if len(scales) else f'dim_{i}')
+            if any(d.startswith('dim_') for d in dims):
+                # no attached scale: match the axis to a coordinate by its length
+                bylen = {}
+                for cn in (k for k in root if k in scale_names):
+                    if root[cn].ndim == 1:
+                        bylen.setdefault(root[cn].shape[0], cn)
+                dims = [bylen.get(n, d) for n, d in zip(np.shape(data), dims)]
             out.variables[name] = Variable(tuple(dims), np.asarray(data) if np.ndim(data) else data,
                                            attrs)
     return out

@@ -1,11 +1,13 @@
 """Weather-model base class: the refractivity preprocessing pipeline.
 
-Counterpart of ``raider_tpu/wx/base.py`` (the numeric pipeline; the model
-readers are not ported yet). Cubes live on the device given to
-:meth:`WeatherModel.load`, in the (y, x, z) layout of the JAX package with z
-ascending; the grid axes and lat/lon grids stay host numpy.
+Counterpart of ``raider_tpu/wx/base.py``: the model metadata (valid time
+range, level type, coverage, file names, fetch) and the numeric pipeline.
+Cubes live on the device given to :meth:`WeatherModel.load`, in the
+(y, x, z) layout of the JAX package with z ascending; the grid axes and
+lat/lon grids stay host numpy.
 
-    load_weather (subclass)  -> fields on the device
+    load_weather (a reader subclass: wx/ecmwf.py, hrrr.py, gmao.py,
+                  merra2.py, ncmr.py, wrf.py) -> fields on the device
       -> _find_e           (saturation vapor pressure)
       -> _uniform_in_z     (per-column interpolation onto one z ladder)
       -> _check_for_nans   (fillna3d: pandas' backward-limit fill, in torch)
@@ -26,8 +28,30 @@ import torch
 from raider_tpu_torch.constants import _ZMIN, _ZREF, R_D, R_V, _g0
 from raider_tpu_torch.geodesy import Geographic, geo_to_ht
 from raider_tpu_torch.io import Dataset, Variable, write_nc
+from raider_tpu_torch.logger import logger
 from raider_tpu_torch.ops import interp_along_axis, ztd_totals
 from raider_tpu_torch.utils import require_device
+from raider_tpu_torch.wx.exceptions import DatetimeOutsideRange
+
+TIME_RES = {
+    'GMAO': 3,
+    'ECMWF': 1,
+    'HRES': 6,
+    'HRRR': 1,
+    'WRF': 1,
+    'NCMR': 1,
+    'HRRR-AK': 3,
+}
+
+
+def host_to_device(a, device, dtype=torch.float64) -> torch.Tensor:
+    """``a`` as a ``dtype`` tensor on ``device`` (its own dtype when None). A
+    host array moves in its own precision (in native byte order: netCDF-3
+    stores big-endian) and converts there."""
+    if not isinstance(a, torch.Tensor):
+        a = np.asarray(a)
+        a = torch.from_numpy(np.ascontiguousarray(a, dtype=a.dtype.newbyteorder('=')))
+    return a.to(device=device).to(dtype or a.dtype)
 
 
 def find_svp(t):
@@ -100,20 +124,39 @@ class WeatherModel:
     A subclass fills the fields in ``load_weather``: ``_t``, ``_p`` and
     ``_q`` (or ``_rh``) as (y, x, z) arrays or tensors, ``_zs`` the
     per-column heights (y, x, z), ``_xs``/``_ys`` the grid axes and
-    ``_lats``/``_lons`` the (y, x) geographic grids.
+    ``_lats``/``_lons`` the (y, x) geographic grids. The readers put their
+    fields on ``_device``, which :meth:`load` sets.
     """
+
+    _dataset: Optional[str] = None
 
     def __init__(self) -> None:
         self._k1 = None
         self._k2 = None
         self._k3 = None
         self._humidityType = 'q'
+        self._a = []
+        self._b = []
+        self.files = None
         self._time = None
         self._time_res = None
         self._lon_res = None
         self._lat_res = None
+        self._x_res = None
+        self._y_res = None
+        self._classname = None
         self._Name = ''
         self._wmLoc = None
+        self._model_level_type = 'ml'
+        self._valid_range = (
+            dt.datetime(1900, 1, 1, tzinfo=dt.timezone.utc),
+            dt.datetime.now(dt.timezone.utc),
+        )
+        self._lag_time = dt.timedelta(days=30)
+        self._bbox = None
+        self._levels = []
+        # valid extent as a (W, S, E, N) box, or a coverage polygon
+        self._valid_bounds = (-180.0, -90.0, 180.0, 90.0)
         self._ll_bounds = None
         self._R_v = float(R_V)
         self._R_d = float(R_D)
@@ -156,6 +199,33 @@ class WeatherModel:
         if self._time.tzinfo is None:
             self._time = self._time.replace(tzinfo=dt.timezone.utc)
 
+    def checkTime(self, time: dt.datetime) -> None:
+        """Raise if ``time`` is outside the model's valid range or lag window."""
+        if not isinstance(time, dt.datetime):
+            raise ValueError(f'"time" should be a datetime object, got {time!r}')
+        time = time.replace(tzinfo=dt.timezone.utc) if time.tzinfo is None else time
+        start, end = self._valid_range
+        logger.info('Weather model %s is available from %s to %s', self.Model(), start, end)
+        if time < start or (end is not None and end < time):
+            raise DatetimeOutsideRange(self.Model(), time)
+        if time > dt.datetime.now(dt.timezone.utc) - self._lag_time:
+            raise DatetimeOutsideRange(self.Model(), time)
+
+    def setLevelType(self, levelType: str) -> None:
+        if levelType not in ('ml', 'pl', 'nat', 'prs'):
+            raise RuntimeError(f'Level type {levelType} is not recognized')
+        self._model_level_type = levelType
+        if levelType in ('ml', 'nat'):
+            self.__model_levels__()
+        else:
+            self.__pressure_levels__()
+
+    def __model_levels__(self) -> None:
+        raise NotImplementedError
+
+    def __pressure_levels__(self) -> None:
+        raise NotImplementedError
+
     def get_latlon_bounds(self):
         return self._ll_bounds
 
@@ -179,6 +249,46 @@ class WeatherModel:
             S, N, W, E = clip_bbox([S, N, W, E], output_spacing)
         self._ll_bounds = np.array([S, N, W, E])
 
+    def checkValidBounds(self, ll_bounds) -> None:
+        from raider_tpu_torch.utils.bbox import boxes_intersect
+
+        S, N, W, E = ll_bounds
+        if not boxes_intersect((W, S, E, N), self._valid_bounds):
+            if not boxes_intersect((W + 360, S, E + 360, N), self._valid_bounds):
+                raise ValueError(f'The requested location is unavailable for {self._Name}')
+
+    @property
+    def bbox(self):
+        """(W, S, E, N) extent of the processed weather file."""
+        if self._bbox is None:
+            from raider_tpu_torch.geodesy import transform_points
+            from raider_tpu_torch.io import read_nc
+
+            path = self.out_file(self.get_wmLoc())
+            if not Path(path).exists():
+                raise ValueError('Need to save cropped weather model as netcdf')
+            ds = read_nc(path)
+            xs = np.asarray(ds.coords['x'].data, dtype=np.float64)
+            ys = np.asarray(ds.coords['y'].data, dtype=np.float64)
+            cx = np.array([xs.min(), xs.min(), xs.max(), xs.max()])
+            cy = np.array([ys.min(), ys.max(), ys.min(), ys.max()])
+            lons, lats = (np.asarray(v) for v in transform_points(self._proj, Geographic(),
+                                                                  cx, cy)[:2])
+            self._bbox = (lons.min(), lats.min(), lons.max(), lats.max())
+        return self._bbox
+
+    @bbox.setter
+    def bbox(self, value) -> None:
+        self._bbox = tuple(value)
+
+    def checkContainment(self, ll_bounds, buffer_deg: float = 1e-5) -> bool:
+        """True if the processed file covers ``ll_bounds`` (SNWE), with the
+        +/-360 longitude translates."""
+        from raider_tpu_torch.utils.bbox import box_contains_with_translates
+
+        s, n, w, e = ll_bounds
+        return box_contains_with_translates(self.bbox, (w, s, e, n), buffer_deg)
+
     def get_wmLoc(self) -> str:
         return self._wmLoc if self._wmLoc is not None else os.path.join(os.getcwd(), 'weather_files')
 
@@ -189,10 +299,32 @@ class WeatherModel:
         return os.path.join(outLoc, make_weather_model_filename(self._Name, self._time,
                                                                 self._ll_bounds))
 
+    def filename(self, time: Optional[dt.datetime] = None, outLoc: str = 'weather_files') -> str:
+        os.makedirs(outLoc, exist_ok=True)
+        if time is None:
+            if self._time is None:
+                raise ValueError('Time must be specified before the file can be written')
+            time = self._time
+        f = make_raw_weather_data_filename(outLoc, self._Name, time)
+        self.files = [f]
+        return f
+
     def getProjection(self):
         return self._proj
 
-    # ---------------------------------------------------------------- load
+    # --------------------------------------------------------- fetch/load
+    def fetch(self, out, time: dt.datetime) -> None:
+        self.checkTime(time)
+        self.setTime(time)
+        try:
+            self._fetch(out)
+        except Exception as e:
+            logger.exception(e)
+            raise
+
+    def _fetch(self, out) -> None:
+        raise NotImplementedError
+
     def load_weather(self, *args, **kwargs) -> None:
         raise NotImplementedError
 
@@ -216,7 +348,9 @@ class WeatherModel:
         for name in ('_t', '_p', '_q', '_rh', '_zs'):
             v = getattr(self, name)
             if v is not None:
-                setattr(self, name, torch.as_tensor(v, device=self._device))
+                setattr(self, name, torch.as_tensor(
+                    np.ascontiguousarray(v) if isinstance(v, np.ndarray) else v,
+                    device=self._device))
         self._find_e()
         self._uniform_in_z(_zlevels=_zlevels)
         self._check_for_nans()
@@ -227,12 +361,20 @@ class WeatherModel:
         return None
 
     # ------------------------------------------------------------- numerics
+    def _convertmb2Pa(self, pres):
+        return 100 * pres
+
     def _get_heights(self, lats, geo_hgt, geo_ht_fill=np.nan) -> None:
         """Geopotential -> ellipsoidal heights."""
-        geo_hgt = torch.as_tensor(geo_hgt, dtype=torch.float64, device=self._device)
+        geo_hgt = host_to_device(geo_hgt, self._device)
         geo_ht_fix = torch.where(geo_hgt != geo_ht_fill, geo_hgt, float('nan'))
-        lats = torch.as_tensor(lats, dtype=torch.float64, device=self._device)
+        lats = host_to_device(lats, self._device)
         self._zs = geo_to_ht(lats[..., None].expand(geo_ht_fix.shape), geo_ht_fix)
+
+    def _calculategeoh(self, z, lnsp):
+        from raider_tpu_torch.wx.calcgeoh import calcgeoh
+
+        return calcgeoh(lnsp, self._t, self._q, z, self._a, self._b, self._R_d, self._levels)
 
     def _find_e(self) -> None:
         if self._humidityType == 'rh':
@@ -276,7 +418,7 @@ class WeatherModel:
                 # bottom is not clamped: below-native-bottom nodes get the
                 # flat surface-gap fill.
                 _zlevels = np.minimum(_zlevels, _nanmin(zs[:, :, -1]))
-        _zlevels = np.asarray(_zlevels, dtype=np.float64)
+        _zlevels = np.ascontiguousarray(_zlevels, dtype=np.float64)
         new_zs = torch.as_tensor(_zlevels, device=self._device).expand(
             tuple(self._p.shape[:2]) + (_zlevels.size,))
         for name in ('_t', '_p', '_e'):

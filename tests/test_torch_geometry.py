@@ -82,13 +82,6 @@ def test_crs_parsing(value, expect):
     assert isinstance(t_crs.crs_from_user(value), expect)
 
 
-@pytest.mark.parametrize('value', [32611, {'grid_mapping_name': 'lambert_conformal_conic'},
-                                   {'grid_mapping_name': 'polar_stereographic'}])
-def test_unported_crs_names_roadmap(value):
-    with pytest.raises(NotImplementedError, match='A4'):
-        t_crs.crs_from_user(value)
-
-
 def test_geographic_geocentric_transform_matches_jax():
     from raider_tpu.geodesy import crs as j_crs
 

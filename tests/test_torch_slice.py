@@ -123,12 +123,71 @@ def test_projected_model_output_spacing(wm_dataset):
         assert np.isfinite(a).all() and np.max(np.abs(a - b)) <= 1e-9
 
 
+@pytest.fixture(scope='module')
+def hrrr_file(tmp_path_factory):
+    """A processed HRRR-type file (Lambert conformal conic, 3 km), written
+    by the JAX package from a raw file of tests/test_torch_readers.py."""
+    from raider_tpu.wx.hrrr import HRRR
+
+    from tests.test_torch_readers import _write_hrrr_raw
+
+    tmp = tmp_path_factory.mktemp('hrrr')
+    m = HRRR()
+    m.setTime(T0)
+    # 240 km a side: the synthetic orbit's rays (~75 deg from the zenith)
+    # stay inside the model up to its top
+    box = np.array([33.0, 34.6, -118.9, -116.6])
+    m.set_latlon_bounds(box)
+    m.set_wmLoc(str(tmp))
+    _write_hrrr_raw(m.filename(outLoc=str(tmp)), n=81, nz=10, bbox=box)
+    m.load()
+    return m.write()
+
+
+@pytest.mark.parametrize('los', ['zenith', 'raytracing'])
+@pytest.mark.parametrize('dtype', [np.float64, np.float32])
+def test_lcc_model_file_matches_jax(hrrr_file, los, dtype):
+    """tropo_delay on a processed LCC file with no cube spacing on the AOI:
+    the output spacing is the model's 3 km step at 1e5 m a degree (the C1
+    rule) and the cubes match the JAX package's."""
+    orbit = synthetic_orbit(T0)
+    j_los = JZen() if los == 'zenith' else JRay(orbit=orbit, time=T0)
+    t_los = Zenith() if los == 'zenith' else Raytracing(orbit=orbit_from_reference(orbit), time=T0)
+    box = [33.6, 33.9, -117.4, -117.1]
+    j_aoi, t_aoi = JBox(box), BoundingBox(box)
+    # one raytraced height keeps the test short (test_tropo_delay_matches_jax
+    # raytraces two)
+    heights = HEIGHTS if los == 'zenith' else HEIGHTS[:1]
+    ref, _ = j_engine.tropo_delay(T0, hrrr_file, j_aoi, j_los, height_levels=heights,
+                                  compute_dtype=dtype)
+    out, _ = t_engine.tropo_delay(T0, hrrr_file, t_aoi, t_los, height_levels=heights,
+                                  compute_dtype=dtype, device='cpu')
+    assert t_aoi.get_output_spacing() == j_aoi.get_output_spacing()
+    assert abs(t_aoi.get_output_spacing() - 0.03) < 1e-6
+    for k in ('x', 'y', 'z'):
+        np.testing.assert_array_equal(out.coords[k].data, np.asarray(ref.coords[k].data))
+    for name in ('wet', 'hydro'):
+        a, b = np.asarray(out[name].data), np.asarray(ref[name].data)
+        assert a.shape == b.shape and a.shape[1] * a.shape[2] >= 100
+        assert np.isfinite(a).all() and np.isfinite(b).all()
+        assert np.max(np.abs(a - b)) <= TOL[dtype]
+    assert np.mean(out['hydro'].data[0]) > 1.5
+
+
 _NO_JAX_SCRIPT = textwrap.dedent('''
     import sys
     sys.modules['jax'] = None          # any import of jax now raises
+    sys.modules['h5py'] = None         # nor h5py: the card's machine has neither
     import datetime as dt
+    import os
+    import tempfile
     import numpy as np
     import raider_tpu_torch
+    import raider_tpu_torch.convert
+    from raider_tpu_torch.utils import bbox, geom2d, timeutils
+    from raider_tpu_torch.wx import (base, calcgeoh, credentials, ecmwf, exceptions, gmao, hrrr,
+                                     levels, merra2, ncmr, process, registry, template, wrf)
+    from raider_tpu_torch.geodesy import LambertConformalConic, PolarStereographic, utm_crs
     from raider_tpu_torch.delay import tropo_delay
     from raider_tpu_torch.geodesy import Geographic
     from raider_tpu_torch.geometry import BoundingBox, Orbit, Raytracing, Zenith
@@ -178,6 +237,21 @@ _NO_JAX_SCRIPT = textwrap.dedent('''
                               *sc['rays'], sc['per_level_max'], packed2d=table, mode=mode,
                               heights=sc['heights'], hstep_max=sc['hstep_max'])
         assert torch.isfinite(w).float().mean() > 0.9, mode
+    # a raw HRRR file (netCDF-3) through get_wm_by_name -> load -> to_dataset
+    # -> tropo_delay on its Lambert conformal grid
+    from raider_tpu_torch.scripts import raw_weather
+    from raider_tpu_torch.wx.base import make_raw_weather_data_filename
+    with tempfile.TemporaryDirectory() as tmp:
+        m = registry.get_wm_by_name('HRRR')[1]()
+        m.setTime(t0)
+        m.set_wmLoc(tmp)
+        raw_weather.write_hrrr(make_raw_weather_data_filename(tmp, 'HRRR', m.getTime()), nz=8,
+                               grid=('lcc', 40, 40, 3000.0, 37.2, -99.2), device='cpu')
+        assert m.load(device='cpu') is None
+        out, _ = tropo_delay(t0, m.to_dataset(), BoundingBox([37.4, 37.9, -98.9, -98.4],
+                                                             cube_spacing_in_m=10000.0),
+                             Zenith(), height_levels=[0.0], device='cpu')
+        assert np.isfinite(out['hydro'].data).all() and 1.5 < float(out['hydro'].data.mean()) < 3
     assert not any(m == 'jax' or m.startswith(('jax.', 'raider_tpu.'))
                    for m in sys.modules if sys.modules[m] is not None)
     print('NO_JAX_OK')
@@ -193,11 +267,14 @@ def test_port_runs_with_jax_blocked():
 
 def test_entry_points_default_to_the_card():
     from raider_tpu_torch.delay.pallas_window import integrate_rays_windowed
-    from raider_tpu_torch.scripts import kernel_profile
+    from raider_tpu_torch.scripts import kernel_profile, raw_weather
     from raider_tpu_torch.wx.base import WeatherModel
+    from raider_tpu_torch.wx.process import prepareWeatherModel
 
     for fn in (t_engine.tropo_delay, WeatherModel.load, integrate_rays_windowed,
-               kernel_profile.run, kernel_profile.build_scene):
+               kernel_profile.run, kernel_profile.build_scene, prepareWeatherModel,
+               raw_weather.write, raw_weather.write_hrrr, raw_weather.write_ecmwf,
+               raw_weather.write_hqpt, raw_weather.write_wrfout):
         assert inspect.signature(fn).parameters['device'].default == 'cuda', fn
 
 
