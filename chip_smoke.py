@@ -64,8 +64,25 @@ Phases, each printing one line; any failure exits non-zero:
      twin, a zenith request; (d) the LCC, polar stereographic and UTM
      forward and inverse on 2^20 points on the card against the CPU
      (1e-8 m, 1e-10 deg).
+  9. point requests on 8a's raw HRRR CONUS file, each through the steps of
+     the calc-delays workflow (the AOI buffered by the model's grid, its
+     output grid on EPSG:4326, the model's bounds, widened toward the
+     sensor for raytracing, a cropped ``load``, ``to_dataset``,
+     ``tropo_delay``): (a) a CSV of 2,000 GNSS stations (a few duplicate
+     rows) drawn in the LCC grid's interior, zenith on the whole CONUS
+     model; (b) ENVI lat/lon/hgt rasters of a Sentinel-1 frame in radar
+     coordinates (2048 x 2048, seeded terrain, a few nodata heights) in
+     Kansas, raytraced at the model's levels from an ESA EOF orbit file;
+     (c) the same frame zenith and projected (``Conventional``) from a
+     2-band incidence/heading raster and from the EOF file; (d) a
+     3600 x 3600 GeoTIFF DEM (one GLO-30 tile) and a GUNW-style geocube
+     (netCDF-3), zenith and raytraced. Gates: finite shares, delay ranges,
+     the point step against scipy in float64 (1e-5 m), projected = zenith
+     / factor (1e-6 relative), the card's projection factor against the
+     CPU's (1e-12), the incidence (20-50 deg), the brick mode and B1 and
+     B2 launched.
 
-Phases 3 to 8 each start with the launch counts at 0 and read them when
+Phases 3 to 9 each start with the launch counts at 0 and read them when
 their path ends; the comparisons after that do not count. The line before
 the last is a JSON record of the kernels (with each kernel's bound: the
 least time the card could take for the same work, from the bytes each
@@ -80,6 +97,7 @@ import json
 import os
 import re
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -133,6 +151,27 @@ WX_STEPS = ('load_weather', '_get_heights', '_find_e', '_uniform_in_z', '_check_
 CRS_POINTS = 1 << 20             # phase 8d
 CRS_TOL_M = 1e-8                 # card vs CPU, projected coordinates
 CRS_TOL_DEG = 1e-10              # card vs CPU, longitude and latitude
+# phase 9: point requests on the raw HRRR CONUS file of phase 8a
+PT_TIME = dt.datetime(2021, 7, 1, 12, 0, 0)
+N_STATIONS = 2000                # 9a: GNSS stations drawn in the LCC grid's interior
+STATION_DUPLICATES = 5
+STATION_MARGIN = 0.05            # share of the grid kept clear on each side
+RDR_SHAPE = (2048, 2048)         # 9b/9c: a Sentinel-1 frame's lat/lon/hgt rasters
+RDR_CENTER = (37.5, -98.75)      # inside phase 8b's Kansas box
+RDR_EXTENT = (2.2, 0.9)          # deg along and across the track (~2.3 x 1.6 deg of lat/lon)
+RDR_SKEW = 10.0                  # deg, the track from north
+RDR_HEIGHTS = (300.0, 1200.0)
+RDR_NODATA = 64                  # pixels with the nodata height
+NODATA = -9999.0
+EOF_STEP = 10.0                  # s between the EOF file's statevectors
+PATCH = 64                       # point step against scipy on a PATCH x PATCH subset
+DEM_SHAPE = (3600, 3600)         # 9d: one GLO-30 1-degree tile
+DEM_ORIGIN = (-99.0, 38.0)       # its west and north edges
+GEOCUBE_SHAPE = (41, 41)         # 9d: latitude x longitude nodes over the DEM tile
+GEOCUBE_HEIGHTS = np.linspace(-500.0, 9000.0, 20)
+POINT_TOL = 1e-5                 # metres, the point step vs scipy in float64
+PROJ_REL_TOL = 1e-6              # projected delay vs zenith / factor
+FACTOR_TOL = 1e-12               # state_to_los_factor, card vs CPU
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM published peaks (NVIDIA data sheet)
 F32_FLOP_PER_S = 67e12
 
@@ -909,10 +948,13 @@ def phase_large(torch, kernels):
 
 
 @contextlib.contextmanager
-def timed_steps(torch, model, names):
-    """While open, ``model``'s pipeline steps record their seconds (the
-    device synchronized before and after) into the dict it yields."""
-    seconds = {}
+def timed_calls(torch, owner, names):
+    """While open, calls of ``owner``'s functions or methods ``names`` (a
+    module's, or an object's) record their seconds (the device synchronized
+    before and after each), their count and the last call's arguments and
+    result into the dict it yields."""
+    rec = {n: {'seconds': 0.0, 'calls': 0} for n in names}
+    own = {n: vars(owner).get(n) for n in names}
 
     def wrap(name, fn):
         def timed(*args, **kwargs):
@@ -920,26 +962,32 @@ def timed_steps(torch, model, names):
             t0 = time.perf_counter()
             out = fn(*args, **kwargs)
             torch.cuda.synchronize()
-            seconds[name] = seconds.get(name, 0.0) + time.perf_counter() - t0
+            r = rec[name]
+            r['seconds'] += time.perf_counter() - t0
+            r['calls'] += 1
+            r['args'], r['out'] = args, out
             return out
         return timed
 
-    for name in names:
-        setattr(model, name, wrap(name, getattr(model, name)))
+    for n in names:
+        setattr(owner, n, wrap(n, getattr(owner, n)))
     try:
-        yield seconds
+        yield rec
     finally:
-        for name in names:
-            delattr(model, name)
+        for n in names:
+            if own[n] is None:
+                delattr(owner, n)
+            else:
+                setattr(owner, n, own[n])
 
 
 def step_seconds(torch, model) -> dict:
     """Seconds of each step of a ``model.load`` of its own, the device
     synchronized before and after each step (so the stage times around
     the user's call carry no synchronization)."""
-    with timed_steps(torch, model, WX_STEPS) as steps:
+    with timed_calls(torch, model, WX_STEPS) as steps:
         model.load(device=DEVICE)
-    return steps
+    return {k: v['seconds'] for k, v in steps.items()}
 
 
 def b1_against_twin(torch, model) -> bool:
@@ -954,18 +1002,18 @@ def b1_against_twin(torch, model) -> bool:
                 and torch.equal(torch.movedim(h, 0, -1), model._hydrostatic_ztd))
 
 
-def track_orbit(lon_deg: float, lat_deg: float):
+def track_orbit(lon_deg: float, lat_deg: float, step: float = 30.0):
     """A 700 km polar orbit whose ground track runs along ``lon_deg``,
-    over ``lat_deg`` at its reference time."""
+    over ``lat_deg`` at its reference time; statevectors every ``step`` s."""
     from raider_tpu_torch.geometry.orbit import Orbit
 
-    tt = np.arange(-600.0, 601.0, 30.0)
+    tt = np.arange(-600.0, 601.0, step)
     r_orb = 6378137.0 + 700e3
     ang = 2.0 * np.pi / 5800.0 * tt + np.deg2rad(lat_deg)
     lon = np.deg2rad(lon_deg)
     pos = np.stack([r_orb * np.cos(ang) * np.cos(lon), r_orb * np.cos(ang) * np.sin(lon),
                     r_orb * np.sin(ang)], -1)
-    return Orbit(times=tt, pos=pos, vel=np.gradient(pos, 30.0, axis=0),
+    return Orbit(times=tt, pos=pos, vel=np.gradient(pos, step, axis=0),
                  ref_time=dt.datetime(2021, 7, 1, 12, 0, 0))
 
 
@@ -1273,11 +1321,400 @@ def phase_crs(torch, card_s):
     return res
 
 
+def load_for(torch, tmp, aoi, los=None, whole=False) -> tuple:
+    """The calc-delays steps on the raw HRRR CONUS file: ``aoi`` buffered by
+    the model's grid, its output grid on EPSG:4326, the model's bounds
+    (widened toward the sensor for a Raytracing ``los``), the raw file HRRR's
+    fetcher writes for those bounds (cut from 8a's whole-grid file into a
+    directory of its own; ``whole``: 8a's file itself), then ``load`` and
+    ``to_dataset``. Returns (dataset, model grid, seconds of the cut, of
+    the load)."""
+    from raider_tpu_torch.geometry import Raytracing
+    from raider_tpu_torch.scripts import raw_weather
+    from raider_tpu_torch.wx.base import make_raw_weather_data_filename
+    from raider_tpu_torch.wx.registry import get_wm_by_name
+
+    model = get_wm_by_name('HRRR')[1]()
+    model.setTime(PT_TIME)
+    aoi.add_buffer(model.getLLRes())
+    aoi.set_output_xygrid(4326)
+    if isinstance(los, Raytracing):
+        bounds = aoi.calc_buffer_ray(los.getSensorDirection(), lookDir=los.getLookDirection(),
+                                     incAngle=30)
+    else:
+        bounds = aoi.bounds()
+    model.set_latlon_bounds(bounds, output_spacing=aoi.get_output_spacing())
+    t0 = time.perf_counter()
+    if whole:
+        model.set_wmLoc(tmp)
+    else:
+        model.set_wmLoc(tempfile.mkdtemp(dir=tmp))
+        raw_weather.crop_hrrr(make_raw_weather_data_filename(tmp, 'HRRR', PT_TIME),
+                              make_raw_weather_data_filename(model.get_wmLoc(), 'HRRR', PT_TIME),
+                              model.get_latlon_bounds())
+    cut_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model.load(device=DEVICE)
+    ds_wm = model.to_dataset()
+    torch.cuda.synchronize()
+    return ds_wm, list(model._t.shape), cut_s, time.perf_counter() - t0
+
+
+def request(torch, ds_wm, aoi, los, heights=None) -> tuple:
+    """``tropo_delay`` on the card, its steps timed: the AOI read (readLL,
+    readZ), the point step, the slice geometry and ``state_to_los_factor``.
+    Returns (result, seconds, the point step's arguments, pack mode)."""
+    from raider_tpu_torch.delay import engine
+    from raider_tpu_torch.geometry import los as los_module
+
+    with timed_calls(torch, aoi, ('readLL', 'readZ')) as read, \
+            timed_calls(torch, engine, ('_delays_at_points', '_slice_geometry',
+                                        'pack_cubes')) as eng, \
+            timed_calls(torch, los_module, ('state_to_los_factor',)) as fac:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = engine.tropo_delay(PT_TIME, ds_wm, aoi, los, height_levels=heights, device=DEVICE)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+    # readZ of a DEM-backed AOI includes a readLL of its own
+    sec = {'tropo_delay': total, 'readLL': read['readLL']['seconds'],
+           'readZ': read['readZ']['seconds'],
+           'point_step': eng['_delays_at_points']['seconds'],
+           'slice_geometry': eng['_slice_geometry']['seconds'],
+           'slices': eng['_slice_geometry']['calls'],
+           'state_to_los_factor': fac['state_to_los_factor']['seconds']}
+    mode = eng['pack_cubes']['out'][1] if eng['pack_cubes']['calls'] else None
+    return out, sec, eng['_delays_at_points'].get('args'), mode
+
+
+def points_vs_scipy(ds, lat, lon, hgt, got) -> float:
+    """Max |diff| of the point delays ``got`` (wet, hydro) to scipy's
+    RegularGridInterpolator in float64 on the host, on the same cube at the
+    same points; the NaN masks must agree."""
+    from scipy.interpolate import RegularGridInterpolator
+
+    z, y, x = (np.asarray(ds.coords[k].data, dtype=np.float64) for k in ('z', 'y', 'x'))
+    pts = np.stack([np.ravel(a) for a in (hgt, lat, lon)], -1)
+    err = 0.0
+    for name, g in zip(('wet', 'hydro'), got):
+        cube = np.asarray(ds[name].data, dtype=np.float64)
+        zz, yy = z, y
+        if z.size > 1 and z[0] > z[-1]:
+            zz, cube = z[::-1], cube[::-1]
+        if y[0] > y[-1]:
+            yy, cube = y[::-1], cube[:, ::-1]
+        ref = RegularGridInterpolator((zz, yy, x), cube, bounds_error=False,
+                                      fill_value=np.nan)(pts)
+        g = np.asarray(g, dtype=np.float64).ravel()
+        check(np.array_equal(np.isnan(ref), np.isnan(g)), f'{name}: NaN masks differ from scipy')
+        err = max(err, float(np.nanmax(np.abs(ref - g))))
+    return err
+
+
+def point_stats(wet, hydro, valid) -> dict:
+    """Finite share of the points where ``valid`` (finite heights), and the
+    mean delays there."""
+    fin = np.isfinite(wet) & np.isfinite(hydro)
+    return dict(points=int(wet.size), valid=int(valid.sum()), finite=float(fin[valid].mean()),
+                mean_wet=float(np.nanmean(wet[valid])), mean_hydro=float(np.nanmean(hydro[valid])))
+
+
+def stations(torch, path):
+    """9a's station CSV: N_STATIONS seeded stations drawn in the interior of
+    the HRRR CONUS LCC grid, inverse-projected, heights 0-3000 m, and
+    STATION_DUPLICATES duplicate rows."""
+    from raider_tpu_torch.scripts import point_inputs, raw_weather
+    from raider_tpu_torch.wx.hrrr import HRRR_CONUS_PROJ
+
+    _, ny, nx, step, lat0, lon0 = raw_weather.DOMAINS['HRRR'][1]
+    x0, y0 = (float(v) for v in HRRR_CONUS_PROJ.forward(lon0, lat0))
+    rng = np.random.default_rng(SEED + 9)
+    fx, fy = (rng.uniform(STATION_MARGIN, 1.0 - STATION_MARGIN, N_STATIONS) for _ in range(2))
+    lon, lat = HRRR_CONUS_PROJ.inverse(torch.as_tensor(x0 + fx * step * (nx - 1)),
+                                       torch.as_tensor(y0 + fy * step * (ny - 1)))
+    return point_inputs.write_station_csv(path, lat.numpy(), lon.numpy(),
+                                          rng.uniform(0.0, 3000.0, N_STATIONS),
+                                          n_duplicates=STATION_DUPLICATES, seed=SEED + 9)
+
+
+def phase_stations(torch, kernels, tmp, card_s):
+    """9a: GNSS stations, zenith delays on the whole CONUS model."""
+    from raider_tpu_torch.geometry import StationFile, Zenith
+
+    csv_file = stations(torch, os.path.join(tmp, 'stations.csv'))
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    aoi = StationFile(csv_file)
+    sec = {'aoi': time.perf_counter() - t0}
+    ds_wm, grid, _, sec['load'] = load_for(torch, tmp, aoi, whole=True)
+    (wet, hydro), req, args, _ = request(torch, ds_wm, aoi, Zenith())
+    launches = dict(kernels.LAUNCHES)
+    sec.update(req)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    ds, (lat, lon, hgt) = args[0], (a.cpu().numpy() for a in args[1:4])
+    err = points_vs_scipy(ds, lat, lon, hgt, (wet, hydro))
+    st = point_stats(wet, hydro, np.isfinite(hgt))
+    say(f'phase 9a [{card_s}] {N_STATIONS} GNSS stations ({STATION_DUPLICATES} duplicate rows '
+        f'dropped to {wet.size}), zenith on the CONUS model (y, x, z) {tuple(grid)}, cube '
+        f'{tuple(np.shape(ds["wet"].data))}: {st}; point step vs scipy float64 max |diff| '
+        f'{err:.3e} m (bound {POINT_TOL:g} m); seconds '
+        + json.dumps({k: round(v, 4) for k, v in sec.items()})
+        + f'; launches {launches}; peak device memory {peak:.2f} GB')
+    check(wet.size == N_STATIONS, f'9a: {wet.size} stations after de-duplication')
+    check(st['finite'] >= 0.99, f'9a finite share {st["finite"]} < 0.99')
+    check(1.5 < st['mean_hydro'] < 3.0, f'9a mean hydrostatic delay {st["mean_hydro"]} m')
+    check(err <= POINT_TOL, f'9a point step vs scipy {err} m > {POINT_TOL} m')
+    return launches, dict(stations=st, model_shape=grid, cube_shape=list(np.shape(ds['wet'].data)),
+                          scipy_err=err, seconds=sec, peak_gb=peak)
+
+
+def radar_inputs(torch, tmp, orbit):
+    """9b/9c inputs: ENVI lat/lon/hgt rasters of a skewed radar grid (the
+    heights seeded terrain with RDR_NODATA nodata pixels), the 2-band
+    incidence/heading raster of the orbit's geometry, and the orbit's EOF."""
+    from raider_tpu_torch.geodesy.ellipsoid import geodetic_normal, lla2ecef
+    from raider_tpu_torch.geometry.orbit import geo2rdr
+    from raider_tpu_torch.io import write_envi
+    from raider_tpu_torch.scripts import point_inputs
+
+    lat, lon = point_inputs.radar_grid(RDR_CENTER, RDR_SHAPE, RDR_EXTENT, RDR_SKEW)
+    hgt = point_inputs.terrain(RDR_SHAPE, *RDR_HEIGHTS, seed=SEED + 9)
+    la, lo, h = (torch.as_tensor(a, device=DEVICE) for a in (lat, lon, hgt))
+    xyz = torch.stack(lla2ecef(la, lo, h), -1)
+    _, sr, sat, _ = geo2rdr(*orbit.on(DEVICE), xyz)
+    look = (sat - xyz) / sr[..., None]
+    phi, lam = torch.deg2rad(la), torch.deg2rad(lo)
+    east = torch.stack([-torch.sin(lam), torch.cos(lam), torch.zeros_like(lam)], -1)
+    north = torch.stack([-torch.sin(phi) * torch.cos(lam), -torch.sin(phi) * torch.sin(lam),
+                         torch.cos(phi)], -1)
+    enu = torch.stack([(look * e).sum(-1) for e in (east, north, geodetic_normal(la, lo))], -1)
+    inc, heading = point_inputs.inc_hd_from_look(enu.cpu().numpy())
+    rng = np.random.default_rng(SEED + 10)
+    hgt = hgt.copy()
+    hgt.ravel()[rng.choice(hgt.size, RDR_NODATA, replace=False)] = NODATA
+    f = {k: os.path.join(tmp, f'{k}.rdr') for k in ('lat', 'lon', 'hgt', 'los')}
+    for k, a in (('lat', lat), ('lon', lon), ('hgt', hgt), ('los', np.stack([inc, heading]))):
+        write_envi(a, f[k], nodata=NODATA)
+    f['eof'] = point_inputs.write_eof(tmp, orbit)
+    return f
+
+
+def phase_radar(torch, kernels, tmp, card_s):
+    """9b (raytraced) and 9c (zenith, then projected from the incidence
+    raster and from the EOF) on a Sentinel-1 frame in radar coordinates."""
+    from raider_tpu_torch.geometry import Conventional, RasterRDR, Raytracing, Zenith
+    from raider_tpu_torch.geometry.orbit import get_orbit, read_ESA_orbit_file, state_to_los_factor
+    from raider_tpu_torch.io import rio_open
+    from raider_tpu_torch.geometry.los import inc_hd_to_enu
+
+    orbit = track_orbit(*WX_TRACK, step=EOF_STEP)
+    t0 = time.perf_counter()
+    f = radar_inputs(torch, tmp, orbit)
+    write_s = time.perf_counter() - t0
+    times, pos, vel = read_ESA_orbit_file(f['eof'])
+    eof_err = float(max(np.abs(pos - orbit.pos).max(), np.abs(vel - orbit.vel).max()))
+    check(times == [orbit.ref_time + dt.timedelta(seconds=float(t)) for t in orbit.times]
+          and eof_err <= 5e-7 + 1e-8, f'9b: the EOF read differs from the orbit by {eof_err}')
+
+    def raster_aoi():
+        return RasterRDR(f['lat'], f['lon'], f['hgt'])
+
+    # 9b: raytraced from the EOF, at the model's levels
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    aoi = raster_aoi()
+    los = Raytracing(filename=f['eof'], time=PT_TIME)
+    sec = {'aoi': time.perf_counter() - t0}
+    ds_wm, grid, sec['fetch_cut'], sec['load'] = load_for(torch, tmp, aoi, los)
+    (wet_r, hyd_r), req, args, mode = request(torch, ds_wm, aoi, los)
+    launches_b = dict(kernels.LAUNCHES)
+    sec.update(req)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    ds_r, (lat, lon, hgt) = args[0], (a.cpu().numpy() for a in args[1:4])
+    valid = np.isfinite(hgt)
+    ray = point_stats(wet_r, hyd_r, valid)
+    rows = np.linspace(0, RDR_SHAPE[0] - 1, PATCH).round().astype(int)[:, None]
+    cols = np.linspace(0, RDR_SHAPE[1] - 1, PATCH).round().astype(int)[None, :]
+    err_b = points_vs_scipy(ds_r, lat[rows, cols], lon[rows, cols], hgt[rows, cols],
+                            (wet_r[rows, cols], hyd_r[rows, cols]))
+    nodata_nan = bool(np.isnan(wet_r[~valid]).all() and np.isnan(hyd_r[~valid]).all())
+    del ds_wm, ds_r, args
+
+    # 9c: zenith and projected on the same raster (one load: same bounds)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    aoi = raster_aoi()
+    sec_c = {'aoi': time.perf_counter() - t0}
+    ds_wm, grid_c, sec_c['fetch_cut'], sec_c['load'] = load_for(torch, tmp, aoi)
+    (wet_z, hyd_z), sec_c['zenith'], _, _ = request(torch, ds_wm, aoi, Zenith())
+    (wet_i, hyd_i), sec_c['projected_raster'], _, _ = request(
+        torch, ds_wm, aoi, Conventional(f['los'], time=PT_TIME))
+    (wet_o, hyd_o), sec_c['projected_orbit'], _, _ = request(
+        torch, ds_wm, aoi, Conventional(f['eof'], time=PT_TIME))
+    launches_c = dict(kernels.LAUNCHES)
+    del ds_wm
+    zen = point_stats(wet_z, hyd_z, valid)
+    both = valid & np.isfinite(hyd_r) & np.isfinite(hyd_z)
+    ratio = hyd_r[both] / hyd_z[both]
+    slant = dict(mean=float(ratio.mean()), min=float(ratio.min()), max=float(ratio.max()),
+                 within_1_2=float(np.mean((ratio > 1.0) & (ratio < 2.0))))
+    los_data, _ = rio_open(f['los'])
+    factor_i = inc_hd_to_enu(*los_data)[..., -1]
+    orbit_f = get_orbit(f['eof'], PT_TIME)
+    dev = [torch.as_tensor(a, device=DEVICE) for a in (lat, lon, hgt)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    factor_o = state_to_los_factor(orbit_f, *dev)
+    torch.cuda.synchronize()
+    factor_s = time.perf_counter() - t0
+    factor_o = factor_o.cpu().numpy()
+    sub = (rows, cols)
+    card_cpu = float(np.nanmax(np.abs(
+        state_to_los_factor(orbit_f, *(d[sub] for d in dev)).cpu().numpy()
+        - state_to_los_factor(orbit_f, *(a[sub] for a in (lat, lon, hgt))).numpy())))
+
+    def rel(got, zenith, factor):
+        r = np.abs(got - zenith / factor) / np.abs(zenith / factor)
+        return float(np.nanmax(r))
+
+    proj = dict(raster=max(rel(wet_i, wet_z, factor_i), rel(hyd_i, hyd_z, factor_i)),
+                orbit=max(rel(wet_o, wet_z, factor_o), rel(hyd_o, hyd_z, factor_o)))
+    inc = np.rad2deg(np.arccos(factor_o[valid]))
+    inc_range = (float(np.nanmin(inc)), float(np.nanmax(inc)))
+
+    say(f'phase 9b [{card_s}] a radar frame {RDR_SHAPE} ({np.prod(RDR_SHAPE)} pixels, {RDR_NODATA} '
+        f'nodata heights), raytraced from an EOF file ({len(times)} statevectors, read max |diff| '
+        f'{eof_err:.2e}): model (y, x, z) {tuple(grid)}, the ladder chose {mode}; {ray}; nodata '
+        f'heights give NaN {nodata_nan}; slant/zenith hydrostatic {slant}; {PATCH}x{PATCH} patch vs '
+        f'scipy float64 max |diff| {err_b:.3e} m; seconds (inputs written {write_s:.2f}) '
+        + json.dumps({k: round(v, 4) for k, v in sec.items()})
+        + f'; launches {launches_b}; peak device memory {peak:.2f} GB')
+    say(f'phase 9c [{card_s}] the same frame, zenith {zen} and projected: max relative |delay - '
+        f'zenith / factor| {proj} (bound {PROJ_REL_TOL:g}); incidence {inc_range[0]:.2f}-'
+        f'{inc_range[1]:.2f} deg; state_to_los_factor on {lat.size} points {factor_s:.4f} s, '
+        f'card vs CPU on {PATCH}x{PATCH} max |diff| {card_cpu:.3e}; seconds '
+        + json.dumps({k: ({kk: round(vv, 4) for kk, vv in v.items()} if isinstance(v, dict)
+                          else round(v, 4)) for k, v in sec_c.items()})
+        + f'; launches {launches_c}')
+    check(mode == 'brick', f'9b: the ladder chose {mode}, not brick, on the cropped cube')
+    check(launches_b['ztd_totals'] >= 1 and launches_b['brick_integrate'] >= 1,
+          f'9b: B1 or B2 not launched: {launches_b}')
+    check(ray['finite'] >= 0.99, f'9b finite share {ray["finite"]} < 0.99')
+    check(nodata_nan, '9b: a nodata height gave a delay')
+    check(slant['within_1_2'] >= 0.99 and 1.0 < slant['mean'] < 2.0,
+          f'9b slant/zenith ratio {slant}')
+    check(err_b <= POINT_TOL, f'9b point step vs scipy {err_b} m > {POINT_TOL} m')
+    check(zen['finite'] >= 0.99, f'9c zenith finite share {zen["finite"]} < 0.99')
+    check(max(proj.values()) <= PROJ_REL_TOL, f'9c projected vs zenith / factor {proj}')
+    check(card_cpu <= FACTOR_TOL, f'9c state_to_los_factor card vs CPU {card_cpu} > {FACTOR_TOL}')
+    check(20.0 <= inc_range[0] and inc_range[1] <= 50.0, f'9c incidence {inc_range} outside 20-50')
+    launches = {k: launches_b[k] + launches_c[k] for k in launches_b}
+    return launches, dict(raytraced=ray, zenith=zen, pack_mode=mode, slant_zenith=slant,
+                          scipy_err=err_b, eof_read_err=eof_err, projected_rel=proj,
+                          incidence_deg=list(inc_range), factor_card_cpu=card_cpu,
+                          factor_s=factor_s, seconds_9b=sec, seconds_9c=sec_c, model_shape=grid,
+                          peak_gb=peak, inputs_s=write_s)
+
+
+def phase_geocoded(torch, kernels, tmp, card_s):
+    """9d: a geocoded DEM (GeoTIFF) and a GUNW-style geocube (netCDF-3)."""
+    from raider_tpu_torch.geodesy import Geographic
+    from raider_tpu_torch.geometry import GeocodedFile, Geocube, Raytracing, Zenith
+    from raider_tpu_torch.io import GDALAffine, write_gtiff
+    from raider_tpu_torch.scripts import point_inputs
+
+    t0 = time.perf_counter()
+    dem = point_inputs.terrain(DEM_SHAPE, *RDR_HEIGHTS, seed=SEED + 11).astype(np.float32)
+    w, n = DEM_ORIGIN
+    px = 1.0 / DEM_SHAPE[1]
+    dem_file = os.path.join(tmp, 'dem.tif')
+    write_gtiff(dem, dem_file, transform=GDALAffine((w, px, 0.0, n, 0.0, -1.0 / DEM_SHAPE[0])),
+                crs=Geographic(), compress=True)
+    cube_file = point_inputs.write_geocube(
+        os.path.join(tmp, 'geocube.nc'), np.linspace(n - 1.0, n, GEOCUBE_SHAPE[0]),
+        np.linspace(w, w + 1.0, GEOCUBE_SHAPE[1]), GEOCUBE_HEIGHTS)
+    write_s = time.perf_counter() - t0
+    del dem
+
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    aoi = GeocodedFile(dem_file, is_dem=True)
+    sec = {'aoi': time.perf_counter() - t0}
+    ds_wm, grid_d, sec['fetch_cut'], sec['load'] = load_for(torch, tmp, aoi)
+    (wet, hydro), req, args, _ = request(torch, ds_wm, aoi, Zenith())
+    sec.update(req)
+    del ds_wm
+    valid = np.isfinite(args[3].cpu().numpy())
+    st = point_stats(wet, hydro, valid)
+    st['valid_share'] = float(valid.mean())
+    del args
+
+    cubes, sec_g = {}, {}
+    los = Raytracing(orbit=track_orbit(*WX_TRACK), time=PT_TIME)
+    for name, l in (('zenith', Zenith()), ('raytraced', los)):
+        aoi = Geocube(cube_file)
+        ds_wm, grid_g, cut_s, load_s = load_for(torch, tmp, aoi, l)
+        (ds, none), req, _, mode = request(torch, ds_wm, aoi, l)
+        check(none is None, f'9d geocube {name}: a cube-type AOI returns (Dataset, None)')
+        req.update(fetch_cut=cut_s, load=load_s)
+        sec_g[name] = req
+        z = np.asarray(ds.coords['z'].data)
+        inside = z >= float(np.min(ds_wm.coords['z'].data))
+        w3, h3 = (np.asarray(ds[k].data) for k in ('wet', 'hydro'))
+        fin = np.isfinite(w3) & np.isfinite(h3)
+        k0 = int(np.argmin(np.abs(z)))
+        cubes[name] = dict(shape=list(w3.shape), model_shape=grid_g, mode=mode,
+                           finite_all=float(fin.mean()),
+                           finite_in_model=float(fin[inside].mean()),
+                           mean_hydro_0m=float(np.nanmean(h3[k0])))
+        check(np.array_equal(z, GEOCUBE_HEIGHTS), f'9d geocube {name} heights {z}')
+        del ds_wm, ds
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    say(f'phase 9d [{card_s}] a geocoded DEM {DEM_SHAPE} (GeoTIFF, deflate) at its '
+        f'{int(np.prod(DEM_SHAPE))} pixels, zenith on the model (y, x, z) {tuple(grid_d)}: {st}; '
+        'seconds '
+        + json.dumps({k: round(v, 4) for k, v in sec.items()})
+        + f'; a geocube {GEOCUBE_SHAPE} x {GEOCUBE_HEIGHTS.size} heights '
+        f'({GEOCUBE_HEIGHTS[0]:g} to {GEOCUBE_HEIGHTS[-1]:g} m): {cubes}; seconds '
+        + json.dumps({k: {kk: round(vv, 4) for kk, vv in v.items()} for k, v in sec_g.items()})
+        + f'; inputs written {write_s:.2f} s; launches {launches}; peak device memory {peak:.2f} GB')
+    check(st['finite'] >= 0.99, f'9d DEM finite share {st["finite"]} < 0.99')
+    check(1.5 < st['mean_hydro'] < 3.0, f'9d DEM mean hydrostatic delay {st["mean_hydro"]} m')
+    for name, c in cubes.items():
+        check(c['finite_in_model'] >= 0.99, f'9d geocube {name} finite share {c}')
+        check(1.5 < c['mean_hydro_0m'] < 3.0, f'9d geocube {name} hydrostatic delay at 0 m {c}')
+    return launches, dict(dem=st, dem_seconds=sec, geocube=cubes, geocube_seconds=sec_g,
+                          peak_gb=peak, inputs_s=write_s)
+
+
+def phase_points(torch, kernels, tmp, card_s):
+    """Phase 9: point requests through the calc-delays steps on the raw
+    HRRR CONUS file of phase 8a. Returns its summed launches and record."""
+    launches, record = {}, {}
+    t0 = time.perf_counter()
+    for name, fn in (('stations', phase_stations), ('radar', phase_radar),
+                     ('geocoded', phase_geocoded)):
+        got, record[name] = fn(torch, kernels, tmp, card_s)
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        torch.cuda.empty_cache()
+    check(launches['ztd_totals'] >= 1 and launches['brick_integrate'] >= 1,
+          f'phase 9: B1 or B2 not launched: {launches}')
+    record.update(launches=launches, seconds=time.perf_counter() - t0)
+    say(json.dumps({'point_requests': record}))
+    return launches, record
+
+
 def phase_weather_models(torch, kernels):
-    """Phase 8: weather models from raw files (8a-8c) and the CRSs (8d).
-    Returns the summed launches of its paths and its record."""
+    """Phase 8: weather models from raw files (8a-8c) and the CRSs (8d),
+    then phase 9 (point requests) in the same directory. Returns the summed
+    launches of phase 8's paths and of phase 9's."""
     import shutil
-    import tempfile
 
     from raider_tpu_torch.scripts import card
 
@@ -1286,14 +1723,16 @@ def phase_weather_models(torch, kernels):
     try:
         launches, hrrr = phase_hrrr(torch, kernels, tmp, card_s)
         fam_launches, families = phase_families(torch, kernels, tmp, card_s)
+        for k, v in fam_launches.items():
+            launches[k] = launches.get(k, 0) + v
+        crs = phase_crs(torch, card_s)
+        record = dict(card=card_s, hrrr_conus=hrrr, families=families, crs=crs, launches=launches)
+        say(json.dumps({'weather_models': record}))
+        # phase 9 reuses 8a's raw HRRR CONUS file
+        launches_pt, _ = phase_points(torch, kernels, tmp, card_s)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    for k, v in fam_launches.items():
-        launches[k] = launches.get(k, 0) + v
-    crs = phase_crs(torch, card_s)
-    record = dict(card=card_s, hrrr_conus=hrrr, families=families, crs=crs, launches=launches)
-    say(json.dumps({'weather_models': record}))
-    return launches, record
+    return launches, launches_pt
 
 
 def main() -> int:
@@ -1338,18 +1777,21 @@ def main() -> int:
     launches_k, prof = phase_profile(torch, kernels)
     launches_l, large = phase_large(torch, kernels)
     say(json.dumps({'large_cubes': large}))
-    launches_wx, _ = phase_weather_models(torch, kernels)
+    launches_wx, launches_pt = phase_weather_models(torch, kernels)
 
     record = {'kernels': [
         {'name': 'ztd_totals', 'route': 'cuda', 'source': 'raider_tpu_torch/csrc/ztd_totals.cu',
          'replaces': 'raider_tpu/ops/pallas_ztd.py:31',
-         'launches': launches['ztd_totals'] + launches_wx['ztd_totals'],
-         'launches_phase_8': launches_wx['ztd_totals'], **measured['ztd_totals']},
+         'launches': launches['ztd_totals'] + launches_wx['ztd_totals'] + launches_pt['ztd_totals'],
+         'launches_phase_8': launches_wx['ztd_totals'],
+         'launches_phase_9': launches_pt['ztd_totals'], **measured['ztd_totals']},
         {'name': 'brick_integrate', 'route': 'cuda',
          'source': 'raider_tpu_torch/csrc/brick_integrate.cu',
          'replaces': 'raider_tpu/delay/raytrace.py:704',
-         'launches': launches['brick_integrate'] + launches_wx['brick_integrate'],
+         'launches': (launches['brick_integrate'] + launches_wx['brick_integrate']
+                      + launches_pt['brick_integrate']),
          'launches_phase_8': launches_wx['brick_integrate'],
+         'launches_phase_9': launches_pt['brick_integrate'],
          **measured['brick_integrate'], 'ptxas': ptxas.get('f32 3x3')},
         {'name': 'window_integrate', 'route': 'cuda',
          'source': 'raider_tpu_torch/csrc/window_integrate.cu',

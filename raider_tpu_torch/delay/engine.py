@@ -1,11 +1,16 @@
 """Top-level tropospheric delay calculation on one device.
 
-Counterpart of ``raider_tpu/delay/engine.py`` for cube-type AOIs with
-zenith or raytraced lines of sight:
+Counterpart of ``raider_tpu/delay/engine.py``: zenith, projected and
+raytraced delays on a cube-type AOI (``BoundingBox``, ``Geocube``: the
+delay cube is the answer) or at the points of a point-type AOI (station
+files, radar and geocoded rasters: the cube, sampled at the points by an
+8-corner gather on the device, the point coordinates in float64).
 
-  * Zenith cube: the integrated-delay fields interpolated onto the output
-    grid, every height level at once (three fp32 contractions when the
-    output CRS is the model's).
+  * Zenith cube (and the projected LOS's, which is the zenith cube, each
+    point delay then divided by the LOS's projection factor): the
+    integrated-delay fields interpolated onto the output grid, every height
+    level at once (three fp32 contractions when the output CRS is the
+    model's).
   * Raytraced cube, per output height (the JAX package's host-geometry
     branch, run on the device in float64): pixel ECEF positions, batched
     geo2rdr look vectors, batched level intersections, boundary points in
@@ -17,8 +22,8 @@ zenith or raytraced lines of sight:
     pack16 / pack16_i16 / pack4 integrate for larger cubes.
 
 The JAX package's device-geometry session (cube-global static plan and
-deferred redo), its int16 result stream, fetch batching and sharding are
-not ported (ROADMAP A5/A6 say why and what would bring them back).
+deferred redo) is ROADMAP A2; its int16 result stream, fetch batching and
+sharding are not ported (ROADMAP "Not to port" says why).
 """
 
 import datetime as dt
@@ -33,7 +38,7 @@ from raider_tpu_torch.delay.raytrace import integrate_rays, pack_cubes
 from raider_tpu_torch.geodesy import (Geocentric, Geographic, crs_from_cf, crs_from_user, get_Re,
                                       transform_points)
 from raider_tpu_torch.geodesy.ellipsoid import lla2ecef
-from raider_tpu_torch.geometry.aoi import AOI, BoundingBox
+from raider_tpu_torch.geometry.aoi import AOI, BoundingBox, Geocube
 from raider_tpu_torch.geometry.los import LOS
 from raider_tpu_torch.geometry.rays import build_ray, level_heights
 from raider_tpu_torch.io import Dataset, Variable, read_nc
@@ -89,29 +94,27 @@ def tropo_delay(
     *,
     device='cuda',
 ):
-    """Delays on a cube-type AOI: returns (Dataset, None).
+    """Delays on an AOI: (Dataset, None) for a cube-type AOI (``BoundingBox``,
+    ``Geocube``), else (wet, hydro) host numpy arrays at the AOI's points.
 
     ``weather_model_file`` is a processed-weather Dataset or a file path;
     all computation runs on ``device``, the CUDA card unless the caller
     names another (without CUDA the default raises; nothing falls back).
     ``compute_dtype`` (of the delay kernels) defaults to float32 on CUDA and
     float64 on the CPU, like the JAX package's accelerator/CPU default.
+    ``height_levels`` default to a Geocube's heights, else the model's
+    levels.
     """
     device = require_device(device)
     if compute_dtype is None:
         compute_dtype = torch.float32 if device.type == 'cuda' else torch.float64
     compute_dtype = torch_dtype(compute_dtype)
-    if not isinstance(aoi, BoundingBox):
-        raise NotImplementedError('raider_tpu_torch computes delay cubes on a BoundingBox; '
-                                  'point-type AOIs are not ported yet (ROADMAP A)')
-    if los.is_Projected():
-        raise NotImplementedError('projected LOS is not ported to raider_tpu_torch yet (ROADMAP A)')
     crs = crs_from_user(out_proj)
     wm = WeatherCube(weather_model_file, device)
 
     toa = wm.zs.max() - 1
     if height_levels is None:
-        height_levels = wm.zs
+        height_levels = aoi.readZ() if isinstance(aoi, Geocube) else wm.zs
     if zref is None:
         zref = toa
     if zref > toa:
@@ -120,7 +123,47 @@ def tropo_delay(
                        f'model. Forcing to top ({toa}).')
     ds = _get_delays_on_cube(datetime, wm, weather_model_file, aoi, height_levels, los, crs,
                              zref, compute_dtype=compute_dtype)
-    return ds, None
+    if isinstance(aoi, (BoundingBox, Geocube)):
+        return ds, None
+
+    # the points stay float64 (float32 would quantize lat/lon at ~0.4 m)
+    lat, lon, hgt = (torch.as_tensor(np.asarray(a, dtype=np.float64), device=device)
+                     for a in (*aoi.readLL(), aoi.readZ()))
+    wet, hydro = _delays_at_points(ds, lat, lon, hgt, crs, compute_dtype)
+    if los.is_Projected():
+        los.setTime(datetime)
+        los.setPoints(lat, lon, hgt)
+        wet = los(wet)
+        hydro = los(hydro)
+    return wet.cpu().numpy(), hydro.cpu().numpy()
+
+
+def _delays_at_points(ds: Dataset, lat, lon, hgt, crs, compute_dtype):
+    """The delay cube ``ds`` sampled at the float64 point tensors (an
+    8-corner gather on their device). The cube goes in as ``compute_dtype``
+    with ascending axes (its y axis is written N->S, and ``height_levels``
+    may descend); the points are moved into ``crs`` when it is not
+    geographic. Returns (wet, hydro) tensors."""
+    device = lat.device
+    if crs == Geographic():
+        pts_y, pts_x, pts_z = lat, lon, hgt
+    else:
+        pts_x, pts_y, pts_z = transform_points(Geographic(), crs, lon, lat, hgt)
+
+    cube_y, cube_x, cube_z = (np.asarray(ds.coords[k].data, dtype=np.float64) for k in 'yxz')
+    flip = tuple(d for d, a in ((0, cube_z), (1, cube_y)) if a.size > 1 and a[0] > a[-1])
+    if 0 in flip:
+        cube_z = cube_z[::-1].copy()
+    if 1 in flip:
+        cube_y = cube_y[::-1].copy()
+    out = []
+    for name in ('wet', 'hydro'):
+        cube = torch.as_tensor(np.asarray(ds[name].data), device=device).to(compute_dtype)
+        if flip:
+            cube = torch.flip(cube, flip)
+        out.append(interp3d_points(cube.contiguous(), cube_y, cube_x, cube_z, pts_y, pts_x,
+                                   pts_z))
+    return out
 
 
 def _get_delays_on_cube(datetime, wm: WeatherCube, weather_model_file, aoi, heights, los,
@@ -136,8 +179,8 @@ def _get_delays_on_cube(datetime, wm: WeatherCube, weather_model_file, aoi, heig
         aoi.set_output_spacing(ll_res=res)
         aoi.set_output_xygrid(crs)
 
-    if los.is_Zenith():
-        out_type = 'zenith'
+    if los.is_Zenith() or los.is_Projected():
+        out_type = 'zenith' if los.is_Zenith() else 'slant - projected'
         wet, hydro = _build_cube(wm, aoi.xpts, aoi.ypts, zpts, crs,
                                  ('wet_total', 'hydro_total'), compute_dtype)
     else:

@@ -1,7 +1,10 @@
-"""Satellite orbit: Hermite interpolation and a batched geo2rdr, in f64.
+"""Satellite orbit: statevector files, Hermite interpolation, a batched
+geo2rdr and the projection factor of a projected LOS, in f64.
 
-Counterpart of ``raider_tpu/geometry/orbit.py`` (interpolation and
-geo2rdr; reading orbit files is not ported yet). The orbit is a small host
+Counterpart of ``raider_tpu/geometry/orbit.py``. The readers are host code
+copied from it: ESA EOF XML, 7-column text (ISO time, x y z, vx vy vz) and
+ISCE2 shelve databases, and ``get_orbit`` pads, sorts and de-duplicates
+their statevectors around a reference time. The orbit is a small host
 object; every evaluation moves its statevectors to the device of the query
 tensor and runs there in float64.
 
@@ -11,12 +14,16 @@ first and second derivatives are carried through the Horner loop.
 """
 
 import datetime as dt
+import os
+import xml.etree.ElementTree as ET
 from dataclasses import dataclass
+from pathlib import PosixPath
+from typing import List, Tuple, Union
 
 import numpy as np
 import torch
 
-from raider_tpu_torch.geodesy.ellipsoid import as_f64
+from raider_tpu_torch.geodesy.ellipsoid import as_f64, geodetic_normal, lla2ecef
 
 
 @dataclass(frozen=True)
@@ -44,6 +51,165 @@ class Orbit:
         """(times, pos, vel) as float64 tensors on ``device``."""
         return tuple(torch.as_tensor(np.asarray(a), dtype=torch.float64, device=device)
                      for a in (self.times, self.pos, self.vel))
+
+
+def read_ESA_orbit_file(filename) -> Tuple[list, np.ndarray, np.ndarray]:
+    """Parse an ESA EOF orbit XML into (datetimes, pos, vel)."""
+    tree = ET.parse(filename)
+    root = tree.getroot()
+    osv_list = root.find('.//List_of_OSVs')
+    if osv_list is None:
+        # positional fallback used by the reference
+        osv_list = root[1][0]
+    t, pos, vel = [], [], []
+    for osv in osv_list:
+        utc = osv.find('UTC').text
+        t.append(dt.datetime.strptime(utc, 'UTC=%Y-%m-%dT%H:%M:%S.%f'))
+        pos.append([float(osv.find(k).text) for k in ('X', 'Y', 'Z')])
+        vel.append([float(osv.find(k).text) for k in ('VX', 'VY', 'VZ')])
+    return t, np.asarray(pos, dtype=np.float64), np.asarray(vel, dtype=np.float64)
+
+
+def read_txt_file(filename) -> Tuple[list, np.ndarray, np.ndarray]:
+    """Parse 7-column statevector text: ISO time, x y z, vx vy vz."""
+    t, pos, vel = [], [], []
+    with open(filename) as f:
+        for line in f:
+            parts = line.strip().split()
+            if not parts:
+                continue
+            try:
+                t.append(dt.datetime.fromisoformat(parts[0]))
+                vals = [float(v) for v in parts[1:7]]
+                if len(vals) != 6:
+                    # slicing never raises: a 4-6 column row would yield
+                    # malformed (n, <3) velocity arrays downstream
+                    raise ValueError('short row')
+            except (ValueError, IndexError):
+                raise ValueError(
+                    f'I need {filename} to be a 7 column text file with columns '
+                    f"t, x, y, z, vx, vy, vz (couldn't parse line {line!r})"
+                )
+            pos.append(vals[:3])
+            vel.append(vals[3:])
+    if len(t) < 4:
+        raise ValueError(f'read_txt_file: file {filename} does not have enough statevectors')
+    return t, np.asarray(pos, dtype=np.float64), np.asarray(vel, dtype=np.float64)
+
+
+def read_shelve_file(filename) -> Tuple[list, np.ndarray, np.ndarray]:
+    """Parse an ISCE2-style shelve database holding a ``frame`` object with
+    ``frame.orbit.stateVectors`` (each with .time/.position/.velocity)
+    into (datetimes, pos, vel)."""
+    import shelve
+
+    with shelve.open(str(filename), 'r') as db:
+        obj = db['frame']
+    svs = obj.orbit.stateVectors
+    if len(svs) == 0:
+        raise ValueError('read_shelve_file: the file has no statevectors')
+    t = [sv.time for sv in svs]
+    pos = np.asarray([sv.position for sv in svs], dtype=np.float64)
+    vel = np.asarray([sv.velocity for sv in svs], dtype=np.float64)
+    return t, pos, vel
+
+
+def filter_ESA_orbit_file(orbit_xml: str, ref_time: dt.datetime) -> bool:
+    """True if the EOF filename's validity window contains ref_time."""
+    f = os.path.basename(str(orbit_xml))
+    t0 = dt.datetime.strptime(f.split('_')[6].lstrip('V'), '%Y%m%dT%H%M%S')
+    t1 = dt.datetime.strptime(f.split('_')[7].rstrip('.EOF'), '%Y%m%dT%H%M%S')
+    return t0 < ref_time < t1
+
+
+def pick_ESA_orbit_file(list_files: list, ref_time: dt.datetime):
+    for path in list_files:
+        if filter_ESA_orbit_file(path, ref_time):
+            return path
+    raise AssertionError('Given orbit files did not match given date/time')
+
+
+def cut_times(times, ref_time, pad: float = 600.0) -> np.ndarray:
+    """Boolean mask of statevector times within ``pad`` seconds of
+    ``ref_time``. ``times`` and ``ref_time`` may be seconds (numeric) or
+    datetimes."""
+    times = np.asarray(times)
+    if times.dtype.kind in 'Mm' or isinstance(ref_time, dt.datetime):
+        diffs = np.array([(t - ref_time).total_seconds() for t in times])
+    else:
+        diffs = times.astype(np.float64) - float(ref_time)
+    return np.abs(diffs) < pad
+
+
+def get_orbit(orbit_file: Union[str, list, PosixPath], ref_time: dt.datetime,
+              pad: int = 600) -> Orbit:
+    """Load statevectors around ``ref_time`` into an :class:`Orbit`: those
+    within ``pad`` seconds (when at least 4 are), sorted, one per time."""
+    files = [orbit_file] if isinstance(orbit_file, (str, PosixPath)) else list(orbit_file)
+
+    t_all: List[dt.datetime] = []
+    pos_all, vel_all = [], []
+
+    def _try_parse(path):
+        errors = []
+        # OSError included: shelve DBs may exist only with a dbm suffix
+        # (path.dat/.dir), so opening `path` as text raises FileNotFoundError
+        try:
+            return read_txt_file(path)
+        except (ValueError, UnicodeDecodeError, OSError) as e:
+            errors.append(f'txt: {e}')
+        try:
+            return read_ESA_orbit_file(path)
+        except Exception as e:
+            errors.append(f'EOF: {e}')
+        try:
+            return read_shelve_file(path)
+        except Exception as e:
+            errors.append(f'shelve: {e}')
+        raise ValueError(
+            f'get_orbit: cannot parse the statevector file {path}: '
+            + '; '.join(errors))
+
+    def _filter_safe(path):
+        # non-standard EOF names can't be windowed by filename; keep them
+        try:
+            return filter_ESA_orbit_file(path, ref_time)
+        except (IndexError, ValueError):
+            return True
+
+    esa = [f for f in files if str(f).endswith('.EOF')]
+    if esa and ref_time is not None:
+        candidates = sorted(set(map(str, esa)))
+        candidates = [f for f in candidates if _filter_safe(f)] or candidates
+        # time-filter only the EOF subset; non-EOF statevector files the
+        # caller passed alongside still contribute
+        files = [f for f in files if not str(f).endswith('.EOF')] + candidates
+    for f in files:
+        t, pos, vel = _try_parse(f)
+        t_all.extend(t)
+        pos_all.append(pos)
+        vel_all.append(vel)
+    pos = np.concatenate(pos_all, axis=0)
+    vel = np.concatenate(vel_all, axis=0)
+
+    # make timezone-naive UTC
+    t_all = [x.replace(tzinfo=None) for x in t_all]
+    ref = ref_time.replace(tzinfo=None) if ref_time is not None else t_all[0]
+    secs = np.array([(x - ref).total_seconds() for x in t_all], dtype=np.float64)
+
+    if ref_time is not None and pad is not None:
+        keep = np.abs(secs) < pad
+        if keep.sum() >= 4:
+            secs, pos, vel = secs[keep], pos[keep], vel[keep]
+
+    order = np.argsort(secs)
+    secs, pos, vel = secs[order], pos[order], vel[order]
+    _, unique_idx = np.unique(secs, return_index=True)
+    secs, pos, vel = secs[unique_idx], pos[unique_idx], vel[unique_idx]
+
+    if secs.size < 4:
+        raise ValueError('At least 4 statevectors are required for orbit interpolation')
+    return Orbit(times=secs, pos=pos, vel=vel, ref_time=ref)
 
 
 def _hermite_window(orbit_times, orbit_pos, orbit_vel, t):
@@ -132,3 +298,17 @@ def geo2rdr(orbit_times, orbit_pos, orbit_vel, targ_xyz, maxiter: int = 15):
     bad = torch.isnan(targ).any(dim=-1) | (t < ot[0]) | (t > ot[-1])
     nan = torch.full_like(t, float('nan'))
     return torch.where(bad, nan, t), torch.where(bad, nan, sr), sat_pos, sat_vel
+
+
+def state_to_los_factor(orbit: Orbit, lats, lons, heights) -> torch.Tensor:
+    """cos(incidence) at targets: the projection factor of the projected
+    (Conventional) LOS, the cosine between the unit target-to-sensor vector
+    at zero Doppler and the local ellipsoid normal. Float64 on the device
+    of ``lats`` (a tensor), else on the CPU."""
+    lat = as_f64(lats)
+    x, y, z = lla2ecef(lat, lons, heights)
+    targ = torch.stack([x, y, z], dim=-1)
+    _, _, sat_pos, _ = geo2rdr(*orbit.on(lat.device), targ)
+    delta = sat_pos - targ
+    delta = delta / torch.linalg.norm(delta, dim=-1, keepdim=True)
+    return torch.sum(delta * geodetic_normal(lat, lons), dim=-1)

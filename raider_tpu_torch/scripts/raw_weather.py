@@ -135,6 +135,34 @@ def write_hrrr(path, ak=False, nz=None, grid=None, seed=0, device='cuda'):
     return path
 
 
+def crop_hrrr(src, dst, ll_bounds) -> tuple:
+    """Write to ``dst`` what HRRR's fetcher (``wx.hrrr.download_hrrr_file``)
+    writes for ``ll_bounds`` (SNWE), cut from the whole-grid raw file
+    ``src``: the rows and columns ``get_bounds_indices`` finds on its
+    latitude/longitude grid, with the longitudes taken modulo 360 as the
+    fetcher does. Returns the (y, x) shape written."""
+    from scipy.io import netcdf_file
+
+    from raider_tpu_torch.wx.hrrr import get_bounds_indices
+
+    bounds = np.asarray(ll_bounds, dtype=np.float64).copy()
+    bounds[2:] = np.mod(bounds[2:], 360)
+    with netcdf_file(str(src), 'r', mmap=True) as f:
+        x0, x1, y0, y1 = get_bounds_indices(bounds, f.variables['latitude'][:],
+                                            f.variables['longitude'][:])
+        cut = {'y': slice(y0, y1), 'x': slice(x0, x1)}
+        with netcdf_file(str(dst), 'w', version=2) as g:
+            for name, size in f.dimensions.items():
+                g.createDimension(name, len(range(size)[cut[name]]) if name in cut else size)
+            for name, var in f.variables.items():
+                out = g.createVariable(name, var.typecode(), var.dimensions)
+                out[...] = var.data[tuple(cut.get(d, slice(None)) for d in var.dimensions)]
+                for k, v in var._attributes.items():
+                    setattr(out, k, v)
+            del var   # the mapped file closes only when no array refers to it
+    return y1 - y0, x1 - x0
+
+
 def _geographic_axes(model, box):
     _, cls = _model_class(model)
     m = cls()

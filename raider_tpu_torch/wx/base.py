@@ -186,6 +186,12 @@ class WeatherModel:
     def Model(self) -> str:
         return self._Name
 
+    def dtime(self) -> Optional[int]:
+        return self._time_res
+
+    def getLLRes(self) -> float:
+        return float(np.max([self._lat_res, self._lon_res]))
+
     def getTime(self) -> Optional[dt.datetime]:
         return self._time
 
@@ -524,6 +530,11 @@ class WeatherModel:
             if name not in ('proj', 'latitude', 'longitude'):
                 var.attrs['grid_mapping'] = 'proj'
         return Dataset(coords=coords, variables=variables, attrs=attrs)
+
+    def getPoints(self):
+        """Copies of the x, y and z grids (arrays, or tensors on the model's device)."""
+        return tuple(a.clone() if isinstance(a, torch.Tensor) else a.copy()
+                     for a in (self._xs, self._ys, self._zs))
 
     def write(self) -> str:
         """Write :meth:`to_dataset` to the processed-model file (needs h5py)."""

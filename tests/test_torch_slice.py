@@ -79,6 +79,35 @@ def test_tropo_delay_matches_jax(wm_dataset, los, dtype):
     assert np.mean(out['wet'].data) > (0.05 if los == 'raytracing' else 0.01)
 
 
+@pytest.mark.parametrize('out_proj', [32611, 'EPSG:32611'])
+@pytest.mark.parametrize('los', ['zenith', 'raytracing'])
+@pytest.mark.parametrize('dtype', [np.float64, np.float32])
+def test_tropo_delay_utm_out_proj_matches_jax(wm_dataset, out_proj, los, dtype):
+    """A cube on UTM 11N axes (metres) from the geographic model: the axes
+    within 1e-9 m (each package's transverse Mercator in float64), the
+    cubes within the dtype's tolerance."""
+    orbit = synthetic_orbit(T0)
+    j_los = JZen() if los == 'zenith' else JRay(orbit=orbit, time=T0)
+    t_los = Zenith() if los == 'zenith' else Raytracing(orbit=orbit_from_reference(orbit), time=T0)
+    ref, _ = j_engine.tropo_delay(T0, wm_dataset, JBox(BBOX, cube_spacing_in_m=5000.0), j_los,
+                                  height_levels=HEIGHTS, out_proj=out_proj, compute_dtype=dtype)
+    out, _ = t_engine.tropo_delay(T0, dataset_from_reference(wm_dataset),
+                                  BoundingBox(BBOX, cube_spacing_in_m=5000.0), t_los,
+                                  height_levels=HEIGHTS, out_proj=out_proj, compute_dtype=dtype,
+                                  device='cpu')
+    np.testing.assert_array_equal(out.coords['z'].data, np.asarray(ref.coords['z'].data))
+    for k in ('x', 'y'):
+        a, b = np.asarray(out.coords[k].data), np.asarray(ref.coords[k].data)
+        assert a.shape == b.shape and np.max(np.abs(a - b)) <= 1e-9
+        assert out.coords[k].attrs['units'] == 'm'
+    assert 100e3 < out.coords['x'].data.min() and out.coords['x'].data.max() < 900e3
+    for name in ('wet', 'hydro'):
+        a, b = np.asarray(out[name].data), np.asarray(ref[name].data)
+        assert a.shape == b.shape and a.shape[1] * a.shape[2] > 100
+        assert np.isfinite(a).all() and np.isfinite(b).all()
+        assert np.max(np.abs(a - b)) <= TOL[dtype]
+
+
 class _MetricPlateCarree(CRS):
     """A projected CRS for the test: longitude and latitude at 1e5 m a degree."""
 
@@ -178,6 +207,7 @@ _NO_JAX_SCRIPT = textwrap.dedent('''
     import sys
     sys.modules['jax'] = None          # any import of jax now raises
     sys.modules['h5py'] = None         # nor h5py: the card's machine has neither
+    sys.modules['pandas'] = None       # nor pandas
     import datetime as dt
     import os
     import tempfile
@@ -215,6 +245,28 @@ _NO_JAX_SCRIPT = textwrap.dedent('''
                                                  cube_spacing_in_m=20000.0),
                              los, height_levels=[0.0], device='cpu')
         assert np.isfinite(out['wet'].data).all(), los
+    # point requests: a station CSV (zenith) and radar rasters raytraced
+    # from an EOF orbit file, every input written by the port
+    from raider_tpu_torch.geometry import RasterRDR, StationFile
+    from raider_tpu_torch.io import write_envi
+    from raider_tpu_torch.scripts import point_inputs
+    with tempfile.TemporaryDirectory() as tmp:
+        rng = np.random.default_rng(0)
+        csv_file = point_inputs.write_station_csv(
+            os.path.join(tmp, 'st.csv'), rng.uniform(33.3, 33.7, 9), rng.uniform(-117.9, -117.5, 9),
+            rng.uniform(0.0, 900.0, 9), n_duplicates=2)
+        wet, hydro = tropo_delay(t0, ds, StationFile(csv_file, cube_spacing_in_m=20000.0), Zenith(),
+                                 device='cpu')
+        assert wet.shape == (9,) and np.isfinite(hydro).all()
+        lat, lon = point_inputs.radar_grid((33.5, -117.7), (6, 5), (0.3, 0.2))
+        for name, a in (('lat', lat), ('lon', lon), ('hgt', np.full(lat.shape, 100.0))):
+            write_envi(a, os.path.join(tmp, name + '.rdr'), nodata=-9999.0)
+        aoi = RasterRDR(*(os.path.join(tmp, n + '.rdr') for n in ('lat', 'lon', 'hgt')),
+                        cube_spacing_in_m=20000.0)
+        eof = point_inputs.write_eof(tmp, orbit)
+        wet, hydro = tropo_delay(t0, ds, aoi, Raytracing(filename=eof, time=t0),
+                                 height_levels=[0.0, 500.0], device='cpu')
+        assert wet.shape == (6, 5) and np.isfinite(wet).all()
     from raider_tpu_torch.delay.pallas_window import integrate_rays_windowed
     from raider_tpu_torch.scripts import probe_f16, window_ablation
     rec = window_ablation.run(window_ablation.build_scene(64, grid=(20, 60, 60), device='cpu'),
@@ -252,7 +304,7 @@ _NO_JAX_SCRIPT = textwrap.dedent('''
                                                              cube_spacing_in_m=10000.0),
                              Zenith(), height_levels=[0.0], device='cpu')
         assert np.isfinite(out['hydro'].data).all() and 1.5 < float(out['hydro'].data.mean()) < 3
-    assert not any(m == 'jax' or m.startswith(('jax.', 'raider_tpu.'))
+    assert not any(m in ('jax', 'pandas', 'h5py') or m.startswith(('jax.', 'raider_tpu.'))
                    for m in sys.modules if sys.modules[m] is not None)
     print('NO_JAX_OK')
 ''')
@@ -290,6 +342,22 @@ def test_default_device_without_cuda_raises(wm_dataset):
                              height_levels=HEIGHTS)
     with pytest.raises(RuntimeError, match='CUDA'):
         WeatherModel().load()
+
+
+def test_no_module_imports_pandas_or_h5py_at_module_level():
+    """pandas and h5py, absent from the card's machine, are imported inside
+    functions only."""
+    import re
+
+    pat = re.compile(r'^(import|from) (pandas|h5py)\b')
+    for dirpath, _, files in os.walk(os.path.join(REPO, 'raider_tpu_torch')):
+        for f in files:
+            if f.endswith('.py'):
+                with open(os.path.join(dirpath, f)) as fh:
+                    bad = [line for line in fh if pat.match(line)]
+                assert not bad, (f, bad)
+    with open(os.path.join(REPO, 'chip_smoke.py')) as fh:
+        assert not [line for line in fh if re.match(r'^\s*(import|from) (pandas|h5py|jax)\b', line)]
 
 
 def test_no_module_imports_jax():
