@@ -81,8 +81,27 @@ Phases, each printing one line; any failure exits non-zero:
      / factor (1e-6 relative), the card's projection factor against the
      CPU's (1e-12), the incidence (20-50 deg), the brick mode and B1 and
      B2 launched.
+ 10. the calc-delays workflow through the CLI (``cli.__main__.main`` in
+     this process, ``--nc_format NETCDF3_64BIT_OFFSET``, ``verbose:
+     false``) on run configs written here: (a) a bbox cube over phase 8b's
+     Kansas AOI, zenith, at 4 heights, 2 km, on two dates (the prefetch
+     worker loads the second); (b) the same bbox raytraced from 9b's EOF;
+     (c) 9a's 2,000 stations, zenith, ``center_time`` at 12:45 between the
+     12:00 and 13:00 epochs; (d) 9b's radar frame raytraced from the EOF
+     with ``azimuth_time_grid``, ``s1_timing``'s two network look-ups
+     replaced by functions that return the local EOF. HRRR's download is
+     replaced by a cut of 8a's CONUS raw file for the bounds it is asked
+     for, each epoch's humidity scaled by a seeded factor. Gates: outputs
+     under the names ``checkArgs`` gives; every netCDF-3 write read back
+     equal bit for bit; each output equal bit for bit to ``tropo_delay``
+     called directly on the processed (or combined) file it should use;
+     (c) the delays = 0.25 d(12:00) + 0.75 d(13:00) (1e-5 m); (d) the
+     azimuth time grid on the card = the CPU's (1 ms), its weights sum to
+     1 (1e-12); B1 at least once a fresh load, B2 in (b) and (d). Where
+     matplotlib is importable, 10a once more with ``verbose: true`` must
+     write the two plots.
 
-Phases 3 to 9 each start with the launch counts at 0 and read them when
+Phases 3 to 10 each start with the launch counts at 0 and read them when
 their path ends; the comparisons after that do not count. The line before
 the last is a JSON record of the kernels (with each kernel's bound: the
 least time the card could take for the same work, from the bytes each
@@ -99,6 +118,7 @@ import re
 import sys
 import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -172,6 +192,12 @@ GEOCUBE_HEIGHTS = np.linspace(-500.0, 9000.0, 20)
 POINT_TOL = 1e-5                 # metres, the point step vs scipy in float64
 PROJ_REL_TOL = 1e-6              # projected delay vs zenith / factor
 FACTOR_TOL = 1e-12               # state_to_los_factor, card vs CPU
+# phase 10: the calc-delays workflow through the CLI
+WF_HEIGHTS = [0.0, 500.0, 1500.0, 3000.0]
+WF_SPACING_M = 2000.0            # cube_spacing_in_m of every config
+WF_STATION_TIME = PT_TIME.replace(minute=45)   # 10c: between the 12:00 and 13:00 epochs
+WF_CENTER_WEIGHTS = (0.25, 0.75)
+WF_CENTER_TOL = 1e-5             # metres, 10c vs the weighted delays of the two epochs
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM published peaks (NVIDIA data sheet)
 F32_FLOP_PER_S = 67e12
 
@@ -1710,10 +1736,489 @@ def phase_points(torch, kernels, tmp, card_s):
     return launches, record
 
 
+@contextlib.contextmanager
+def local_hrrr_fetcher(conus_raw):
+    """HRRR's download (``wx.hrrr.download_hrrr_file``) replaced by a cut of
+    the CONUS raw file for the bounds it is asked for
+    (``raw_weather.crop_hrrr``), the humidity of each epoch scaled by a
+    factor drawn from the seed and the epoch; yields the list of (epoch,
+    scale) cut."""
+    from raider_tpu_torch.scripts import raw_weather
+    from raider_tpu_torch.wx import hrrr
+
+    cuts, own = [], hrrr.download_hrrr_file
+
+    def fetch(ll_bounds, date, out, model='hrrr', product='nat', fxx=0, verbose=False):
+        scale = float(np.random.default_rng(SEED + int(date.strftime('%d%H'))).uniform(0.8, 1.2))
+        raw_weather.crop_hrrr(conus_raw, out, ll_bounds, q_scale=scale)
+        cuts.append((date, scale))
+
+    hrrr.download_hrrr_file = fetch
+    try:
+        yield cuts
+    finally:
+        hrrr.download_hrrr_file = own
+
+
+def write_config(path, groups: dict) -> str:
+    """A run config of phase 10 (written by the port's YAML writer)."""
+    from raider_tpu_torch.workflows import yaml_subset
+
+    cfg = {'look_dir': 'right', 'weather_model': 'HRRR', 'height_group': {}, 'los_group': {}}
+    for k, v in groups.items():
+        cfg[k] = {**cfg.get(k, {}), **v} if isinstance(v, dict) else v
+    with open(path, 'w') as f:
+        yaml_subset.dump(cfg, f)
+    return path
+
+
+def workflow_prep(cfg):
+    """calcDelays' own set-up of a run config, repeated outside it (before
+    the run: its ``checkArgs`` writes a station file's template CSV where
+    the run writes its output): the run config, its AOI (buffered by the
+    model's grid, its output grid set), LOS, and model (with the bounds it
+    fetches and processes)."""
+    from raider_tpu_torch.geometry import Raytracing
+    from raider_tpu_torch.workflows.check_args import checkArgs
+    from raider_tpu_torch.workflows.config import read_run_config_file
+
+    rc = checkArgs(read_run_config_file(cfg))
+    aoi, los, model = rc.aoi_group.aoi, rc.los_group.los, rc.weather_model
+    aoi.add_buffer(model.getLLRes())
+    aoi.set_output_xygrid(rc.runtime_group.output_projection)
+    if isinstance(los, Raytracing):
+        bounds = aoi.calc_buffer_ray(los.getSensorDirection(), lookDir=los.getLookDirection(),
+                                     incAngle=30)
+    else:
+        bounds = aoi.bounds()
+    model.set_latlon_bounds(bounds, output_spacing=aoi.get_output_spacing())
+    return rc, aoi, los, model
+
+
+def processed_file(model, when) -> str:
+    model.setTime(when)
+    return model.out_file(model.get_wmLoc())
+
+
+def combined_file(first, when, style) -> str:
+    """``combine_weather_files``' output name for the processed ``first``."""
+    name = os.path.basename(first)
+    return os.path.join(os.path.dirname(first), name.split('_')[0] + '_'
+                        + when.strftime('%Y_%m_%dT%H_%M_%S') + style
+                        + '_'.join(name.split('_')[-4:]))
+
+
+def attrs_equal(a: dict, b: dict) -> bool:
+    if set(a) != set(b):
+        return False
+    for k, v in a.items():
+        w = b[k]
+        if isinstance(v, str) or isinstance(w, str) or isinstance(v, (list, tuple)):
+            if list(v) != list(w) if isinstance(v, (list, tuple)) else v != w:
+                return False
+        elif not np.array_equal(np.asarray(v), np.asarray(w)):
+            return False
+    return True
+
+
+def same_values(torch, a, b: np.ndarray) -> bool:
+    """``a`` (an array, or a tensor on the card: compared there) equals the
+    host array ``b`` bit for bit in value and dtype, NaN where NaN."""
+    if isinstance(a, torch.Tensor):
+        if a.shape != b.shape or str(a.dtype) != f'torch.{b.dtype}':
+            return False
+        b = torch.as_tensor(b, device=a.device)
+        same = a == b
+        if a.is_floating_point():
+            same |= torch.isnan(a) & torch.isnan(b)
+        return bool(same.all())
+    a = np.asarray(a)
+    return a.dtype == b.dtype and np.array_equal(a, b, equal_nan=a.dtype.kind == 'f')
+
+
+def same_dataset(torch, ds, path):
+    """The netCDF-3 file ``path`` read back; whether it equals ``ds`` bit
+    for bit: names, dims, dtypes, values (NaN where NaN) and attributes."""
+    from raider_tpu_torch.io import read_nc
+
+    back = read_nc(path)
+    if set(back.coords) != set(ds.coords) or set(back.variables) != set(ds.variables):
+        return back, False
+    for group, back_group in ((ds.coords, back.coords), (ds.variables, back.variables)):
+        for name, var in group.items():
+            if (tuple(var.dims) != tuple(back_group[name].dims)
+                    or not same_values(torch, var.data, np.asarray(back_group[name].data))
+                    or not attrs_equal(var.attrs, back_group[name].attrs)):
+                return back, False
+    return back, attrs_equal(ds.attrs, back.attrs)
+
+
+@contextlib.contextmanager
+def recorded_writes(torch):
+    """Every ``write_nc`` of the workflow (the processed models in
+    ``wx.base``, the combined files and cubes in ``calc_delays``) timed,
+    then read back and held against the dataset it wrote (untimed); the
+    datasets read back are kept by path, for the direct calls."""
+    from raider_tpu_torch.workflows import calc_delays
+    from raider_tpu_torch.wx import base
+
+    rec = {'model': 0.0, 'combined': 0.0, 'output': 0.0, 'files': [], 'equal': [],
+           'check_model': 0.0, 'check_combined': 0.0, 'check_output': 0.0, 'back': {}}
+    owners = (base, calc_delays)
+    own = [o.write_nc for o in owners]
+
+    def wrap(fn, owner):
+        def write(ds, path, *args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(ds, path, *args, **kwargs)
+            kind = ('model' if owner is base else
+                    'combined' if '_timeInterp' in os.path.basename(str(path)) else 'output')
+            t1 = time.perf_counter()
+            rec[kind] += t1 - t0
+            rec['files'].append(str(path))
+            back, equal = same_dataset(torch, ds, path)
+            rec['equal'].append(equal)
+            rec['back'][str(path)] = back
+            rec['check_' + kind] += time.perf_counter() - t1
+            return out
+        return write
+
+    for o, fn in zip(owners, own):
+        o.write_nc = wrap(fn, o)
+    try:
+        yield rec
+    finally:
+        for o, fn in zip(owners, own):
+            o.write_nc = fn
+
+
+@contextlib.contextmanager
+def recorded_loads():
+    """Each ``WeatherModel.load``: whether it processed a raw file (it
+    returned None) and on which thread."""
+    import threading
+
+    from raider_tpu_torch.wx.base import WeatherModel
+
+    rec = []
+    own = WeatherModel.load
+
+    def load(self, *args, **kwargs):
+        out = own(self, *args, **kwargs)
+        rec.append((out is None, threading.current_thread().name))
+        return out
+
+    WeatherModel.load = load
+    try:
+        yield rec
+    finally:
+        WeatherModel.load = own
+
+
+def run_case(torch, kernels, cfg, conus_raw) -> dict:
+    """One phase 10 case through ``cli.__main__.main`` on the card, each
+    step timed: returns the paths, seconds, launches, loads, the netCDF-3
+    write record and the peak device memory."""
+    from raider_tpu_torch.cli.__main__ import main
+    from raider_tpu_torch.workflows import calc_delays
+    from raider_tpu_torch.wx.base import WeatherModel
+    from raider_tpu_torch.wx.hrrr import HRRR
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    with local_hrrr_fetcher(conus_raw) as cuts, recorded_writes(torch) as writes, \
+            recorded_loads() as loads, \
+            timed_calls(torch, calc_delays, ('read_run_config_file', 'prepareWeatherModel',
+                                             'combine_weather_files', 'tropo_delay',
+                                             'writeDelays')) as cd, \
+            timed_calls(torch, WeatherModel, ('fetch', 'load')) as wm, \
+            timed_calls(torch, HRRR, ('load_weather',)) as hr:
+        t0 = time.perf_counter()
+        paths = main([cfg, '--nc_format', 'NETCDF3_64BIT_OFFSET'], device=DEVICE)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    # the read-back checks of the netCDF-3 writes run inside the steps:
+    # they are taken out of each step and reported on their own
+    checks = writes['check_model'] + writes['check_combined'] + writes['check_output']
+    sec = {'calcDelays': total - checks, 'readback_checks': checks,
+           'config_read': cd['read_run_config_file']['seconds'],
+           'prepareWeatherModel': cd['prepareWeatherModel']['seconds'] - writes['check_model'],
+           'fetch_cut': wm['fetch']['seconds'],
+           'load': wm['load']['seconds'], 'read_raw': hr['load_weather']['seconds'],
+           'model_write_netcdf3': writes['model'],
+           'combine': (cd['combine_weather_files']['seconds'] - writes['combined']
+                       - writes['check_combined']),
+           'combined_write_netcdf3': writes['combined'],
+           'tropo_delay': cd['tropo_delay']['seconds'],
+           'output_write': writes['output'] + cd['writeDelays']['seconds']}
+    return dict(paths=[str(p) for p in paths], seconds=sec, launches=launches,
+                fresh_loads=sum(fresh for fresh, _ in loads),
+                load_threads=sorted({name for _, name in loads}), writes=writes,
+                epochs=[(d.isoformat(), round(s, 4)) for d, s in cuts],
+                peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+
+def case_gates(name, rec, expected_paths, min_b2=0) -> None:
+    check(rec['paths'] == [str(p) for p in expected_paths],
+          f'{name}: outputs {rec["paths"]} are not the names checkArgs gives {expected_paths}')
+    check(all(os.path.exists(p) for p in expected_paths), f'{name}: an output is missing')
+    check(rec['writes']['files'] and all(rec['writes']['equal']),
+          f'{name}: a netCDF-3 file read back differs from what was written: '
+          f'{list(zip(rec["writes"]["files"], rec["writes"]["equal"]))}')
+    check(rec['launches']['ztd_totals'] >= rec['fresh_loads'] >= 1,
+          f'{name}: B1 launched {rec["launches"]["ztd_totals"]} times for {rec["fresh_loads"]} '
+          'fresh loads')
+    check(rec['launches']['brick_integrate'] >= min_b2,
+          f'{name}: B2 launched {rec["launches"]["brick_integrate"]} times (< {min_b2})')
+
+
+def direct(torch, rc, aoi, los, when, wm_file, rec):
+    """``tropo_delay`` called directly on the card on a processed file (as
+    the run's write check read it back: the same values, not read again)."""
+    from raider_tpu_torch.delay import engine
+
+    check(wm_file in rec['back'], f'{wm_file} was not written in this run')
+    return engine.tropo_delay(when, rec['back'][wm_file], aoi, los,
+                              height_levels=rc.height_group.height_levels,
+                              out_proj=rc.runtime_group.output_projection,
+                              zref=rc.los_group.zref, device=DEVICE)
+
+
+def read_delay_csv(path) -> tuple:
+    import csv
+
+    with open(path, newline='') as f:
+        rows = list(csv.reader(f))
+    i_w, i_h = rows[0].index('wetDelay'), rows[0].index('hydroDelay')
+    return tuple(np.array([float(r[i]) for r in rows[1:]]) for i in (i_w, i_h))
+
+
+def zero_nan(a):
+    a = np.asarray(a).copy()
+    a[np.isnan(a)] = 0.0
+    return a
+
+
+def phase_workflow(torch, kernels, tmp, card_s):
+    """Phase 10: the calc-delays workflow through the CLI
+    (``cli.__main__.main``) on run configs written here, every config with
+    ``--nc_format NETCDF3_64BIT_OFFSET`` and ``verbose: false``. Inputs
+    are phase 8a's raw HRRR CONUS file (each epoch's raw file the cut
+    HRRR's fetcher would write, its humidity scaled by a seeded factor),
+    9a's station CSV, 9b's radar rasters and the EOF. Returns its summed
+    launches and record."""
+    import glob
+    import importlib.util
+    import shutil
+
+    from raider_tpu_torch.io import read_envi, read_nc
+    from raider_tpu_torch.workflows import s1_timing
+    from raider_tpu_torch.wx.base import make_raw_weather_data_filename
+
+    t_phase = time.perf_counter()
+    conus_raw = make_raw_weather_data_filename(tmp, 'HRRR', PT_TIME)
+    eof = glob.glob(os.path.join(tmp, '*.EOF'))[0]
+    root = tempfile.mkdtemp(prefix='phase10_', dir=tmp)
+    spacing = {'cube_spacing_in_m': WF_SPACING_M, 'verbose': False}
+
+    def case_dirs(name):
+        out = os.path.join(root, name)
+        os.makedirs(out)
+        return {'output_directory': out, 'weather_model_directory': os.path.join(out, 'wm')}
+
+    bbox = {'bounding_box': ' '.join(str(v) for v in WX_BOX)}
+    heights = {'height_levels': ' '.join(str(int(h)) for h in WF_HEIGHTS)}
+    day = PT_TIME.strftime('%Y%m%d')
+    cfgs = {
+        '10a': write_config(os.path.join(root, '10a.yaml'), {
+            'date_group': {'date_start': int(day),
+                           'date_end': int((PT_TIME + dt.timedelta(days=1)).strftime('%Y%m%d'))},
+            'time_group': {'time': PT_TIME.strftime('%H:%M:%S'), 'interpolate_time': 'none'},
+            'aoi_group': bbox, 'height_group': heights,
+            'runtime_group': {**spacing, **case_dirs('10a'), 'output_projection': 'EPSG:4326'}}),
+        '10b': write_config(os.path.join(root, '10b.yaml'), {
+            'date_group': {'date_start': int(day)},
+            'time_group': {'time': PT_TIME.strftime('%H:%M:%S'), 'interpolate_time': 'none'},
+            'aoi_group': bbox, 'height_group': heights,
+            'los_group': {'ray_trace': True, 'orbit_file': eof},
+            'runtime_group': {**spacing, **case_dirs('10b')}}),
+        '10c': write_config(os.path.join(root, '10c.yaml'), {
+            'date_group': {'date_start': int(day)},
+            'time_group': {'time': WF_STATION_TIME.strftime('%H:%M:%S'),
+                           'interpolate_time': 'center_time'},
+            'aoi_group': {'station_file': os.path.join(tmp, 'stations.csv')},
+            'runtime_group': {**spacing, **case_dirs('10c')}}),
+        '10d': write_config(os.path.join(root, '10d.yaml'), {
+            'date_group': {'date_start': int(day)},
+            'time_group': {'time': PT_TIME.strftime('%H:%M:%S'),
+                           'interpolate_time': 'azimuth_time_grid'},
+            'aoi_group': {'lat_file': os.path.join(tmp, 'lat.rdr'),
+                          'lon_file': os.path.join(tmp, 'lon.rdr')},
+            'height_group': {'height_file_rdr': os.path.join(tmp, 'hgt.rdr')},
+            'los_group': {'ray_trace': True, 'orbit_file': eof},
+            'runtime_group': {**spacing, **case_dirs('10d')}}),
+    }
+    record, launches = {}, {}
+
+    # 10a: a bbox cube, zenith, two dates (the prefetch worker loads the second)
+    rc, aoi, los, model = workflow_prep(cfgs['10a'])
+    rec = run_case(torch, kernels, cfgs['10a'], conus_raw)
+    out = [Path(w.replace('wet', 'tropo')).with_suffix('.nc') for w in rc.wetFilenames]
+    case_gates('10a', rec, out)
+    check(rec['fresh_loads'] == 2 and 'wm-prefetch_0' in rec['load_threads'],
+          f'10a: loads {rec["fresh_loads"]} on threads {rec["load_threads"]}')
+    eq = []
+    for when, path in zip(rc.date_group.date_list, out):
+        want, _ = direct(torch, rc, aoi, los, when, processed_file(model, when), rec['writes'])
+        got = read_nc(path)
+        eq.append(all(np.array_equal(np.asarray(got[k].data), np.asarray(want[k].data),
+                                     equal_nan=True) for k in ('wet', 'hydro')))
+    differ = not np.array_equal(np.asarray(read_nc(out[0])['wet'].data),
+                                np.asarray(read_nc(out[1])['wet'].data), equal_nan=True)
+    rec.update(direct_equal=eq, dates_differ=differ)
+    check(all(eq), f'10a: an output differs from tropo_delay on its processed file: {eq}')
+    check(differ, '10a: the two dates wrote the same wet delays')
+    rec['writes'].pop('back')
+    record['10a'] = rec
+    shutil.rmtree(os.path.join(root, '10a'))   # its files are checked
+
+    # 10b: the same bbox raytraced from the EOF (kernel B2)
+    rc, aoi, los, model = workflow_prep(cfgs['10b'])
+    rec = run_case(torch, kernels, cfgs['10b'], conus_raw)
+    out = [Path(w.replace('wet', 'tropo').replace('_std', '_ray')).with_suffix('.nc')
+           for w in rc.wetFilenames]
+    case_gates('10b', rec, out, min_b2=1)
+    want, _ = direct(torch, rc, aoi, los, PT_TIME, processed_file(model, PT_TIME), rec['writes'])
+    got = read_nc(out[0])
+    rec['direct_equal'] = all(np.array_equal(np.asarray(got[k].data), np.asarray(want[k].data),
+                                             equal_nan=True) for k in ('wet', 'hydro'))
+    check(rec['direct_equal'], '10b: the cube differs from tropo_delay on its processed file')
+    rec['writes'].pop('back')
+    record['10b'] = rec
+    shutil.rmtree(os.path.join(root, '10b'))   # its files are checked
+
+    # 10c: the stations, zenith, center_time between two epochs
+    rc, aoi, los, model = workflow_prep(cfgs['10c'])
+    rec = run_case(torch, kernels, cfgs['10c'], conus_raw)
+    case_gates('10c', rec, rc.wetFilenames)
+    when = rc.date_group.date_list[0]
+    epochs = [when.replace(minute=0, second=0), when.replace(minute=0, second=0)
+              + dt.timedelta(hours=1)]
+    files = [processed_file(model, e) for e in epochs]
+    comb = combined_file(files[0], when, '_timeInterp_')
+    got = read_delay_csv(rc.wetFilenames[0])
+    want = direct(torch, rc, aoi, los, when, comb, rec['writes'])
+    # a value's shortest repr in its dtype reads back as that value
+    rec['direct_equal'] = all(np.array_equal(g.astype(w.dtype), zero_nan(w))
+                              for g, w in zip(got, want))
+    each = [direct(torch, rc, aoi, los, e, f, rec['writes']) for e, f in zip(epochs, files)]
+    w = WF_CENTER_WEIGHTS
+    rec['weights_err'] = float(max(np.max(np.abs(
+        g - zero_nan(w[0] * np.asarray(a, np.float64) + w[1] * np.asarray(b, np.float64))))
+        for g, a, b in zip(got, each[0], each[1])))
+    check(rec['direct_equal'], '10c: the CSV differs from tropo_delay on the combined file')
+    check(rec['weights_err'] <= WF_CENTER_TOL,
+          f'10c: delays vs {w[0]} d({epochs[0]}) + {w[1]} d({epochs[1]}): '
+          f'{rec["weights_err"]} m > {WF_CENTER_TOL} m')
+    check(comb in rec['writes']['files'], f'10c: no combined file {comb}')
+    rec['writes'].pop('back')
+    record['10c'] = rec
+    shutil.rmtree(os.path.join(root, '10c'))   # its files are checked
+
+    # 10d: the radar frame raytraced, azimuth_time_grid; the two look-ups of
+    # s1_timing (the ASF catalogue, the orbit download) return the local EOF
+    rc, aoi, los, model = workflow_prep(cfgs['10d'])
+    own = (s1_timing.get_slc_ids_from_time, s1_timing.get_orbits_from_slc_ids_hyp3lib)
+    s1_timing.get_slc_ids_from_time = lambda lon, lat, time: ['S1A_local_EOF']
+    s1_timing.get_orbits_from_slc_ids_hyp3lib = lambda ids, orbit_directory=None: [eof]
+    try:
+        with timed_calls(torch, s1_timing, ('get_azimuth_time_grid',
+                                            'get_inverse_weights_for_dates')) as s1:
+            rec = run_case(torch, kernels, cfgs['10d'], conus_raw)
+    finally:
+        s1_timing.get_slc_ids_from_time, s1_timing.get_orbits_from_slc_ids_hyp3lib = own
+    out = [(w.replace('_std', '_ray'), h.replace('_std', '_ray'))
+           for w, h in zip(rc.wetFilenames, rc.hydroFilenames)]
+    case_gates('10d', rec, [o[0] for o in out], min_b2=1)
+    args = s1['get_azimuth_time_grid']['args']
+    grid = s1['get_azimuth_time_grid']['out']
+    grid_cpu = s1_timing.get_azimuth_time_grid(*args, device='cpu')
+    both = ~np.isnat(grid) & ~np.isnat(grid_cpu)
+    rec['time_grid_ms_err'] = float(np.max(np.abs(
+        (grid[both] - grid_cpu[both]).astype('timedelta64[ms]').astype(np.float64))))
+    rec['time_grid_nat_equal'] = bool(np.array_equal(np.isnat(grid), np.isnat(grid_cpu)))
+    wsum = np.sum(s1['get_inverse_weights_for_dates']['out'], axis=0)
+    rec['weights_sum_err'] = float(np.nanmax(np.abs(wsum - 1.0)))
+    rec['time_grid_shape'] = list(grid.shape)
+    times = s1_timing.get_times_for_azimuth_interpolation(PT_TIME, 1)
+    comb = combined_file(processed_file(model, times[0]), PT_TIME, '_timeInterpAziGrid_')
+    wet, hydro = direct(torch, rc, aoi, los, PT_TIME, comb, rec['writes'])
+    got = [read_envi(o)[0] for o in out[0]]   # (bands, rows, cols)
+    rec['direct_equal'] = all(g.shape == (1, *w.shape)
+                              and np.array_equal(g[0], zero_nan(w).astype(np.float32))
+                              for g, w in zip(got, (wet, hydro)))
+    check(rec['time_grid_ms_err'] <= 1.0 and rec['time_grid_nat_equal'],
+          f'10d: azimuth time grid card vs CPU {rec["time_grid_ms_err"]} ms')
+    check(rec['weights_sum_err'] <= 1e-12, f'10d: weights sum to 1 +- {rec["weights_sum_err"]}')
+    check(rec['direct_equal'], '10d: the rasters differ from tropo_delay on the combined file')
+    rec['writes'].pop('back')
+    record['10d'] = rec
+    shutil.rmtree(os.path.join(root, '10d'))   # its files are checked
+    launches = {k: sum(r['launches'][k] for r in record.values()) for k in kernels.LAUNCHES}
+
+    found = {m: importlib.util.find_spec(m) is not None for m in ('matplotlib', 'yaml')}
+    say(f'phase 10 [{card_s}] importable on this machine: matplotlib {found["matplotlib"]}, '
+        f'PyYAML {found["yaml"]}')
+    if found['matplotlib']:
+        # the plots of a fresh load, written to the working directory
+        os.environ.setdefault('MPLBACKEND', 'Agg')
+        plots = os.path.join(root, 'plots')
+        cfg = write_config(os.path.join(root, '10a_verbose.yaml'), {
+            'date_group': {'date_start': int(day)},
+            'time_group': {'time': PT_TIME.strftime('%H:%M:%S'), 'interpolate_time': 'none'},
+            'aoi_group': bbox, 'height_group': heights,
+            'runtime_group': {**spacing, **case_dirs('10a_verbose'), 'verbose': True}})
+        os.makedirs(plots)
+        with contextlib.chdir(plots):
+            run_case(torch, kernels, cfg, conus_raw)
+        pdfs = sorted(os.listdir(plots))
+        check(pdfs == ['HRRR_weather_hgt500.0_and_15000.0m.pdf',
+                       'HRRR_weather_model_refractivity.pdf']
+              and all(os.path.getsize(os.path.join(plots, p)) > 0 for p in pdfs),
+              f'10a verbose: plots {pdfs}')
+        record['10a_verbose_plots'] = pdfs
+    for name, rec in record.items():
+        if isinstance(rec, dict):
+            say(f'phase {name} [{card_s}] seconds '
+                + json.dumps({k: round(v, 4) for k, v in rec['seconds'].items()})
+                + f'; B1 {rec["launches"]["ztd_totals"]}, B2 {rec["launches"]["brick_integrate"]} '
+                f'launches; fresh loads {rec["fresh_loads"]} on {rec["load_threads"]}; epochs '
+                f'(humidity scale) {rec["epochs"]}; netCDF-3 writes read back equal '
+                f'{rec["writes"]["equal"]}; peak device memory {rec["peak_gb"]:.2f} GB; '
+                + ', '.join(f'{k} {rec[k]}' for k in ('direct_equal', 'dates_differ',
+                                                       'weights_err', 'time_grid_ms_err',
+                                                       'time_grid_shape', 'weights_sum_err')
+                            if k in rec))
+            rec['writes'] = dict(files=[os.path.basename(p) for p in rec['writes']['files']],
+                                 equal=rec['writes']['equal'])
+    check(launches['ztd_totals'] >= 1 and launches['brick_integrate'] >= 1,
+          f'phase 10: B1 or B2 not launched: {launches}')
+    record.update(launches=launches, seconds=time.perf_counter() - t_phase,
+                  note='10d: s1_timing.get_slc_ids_from_time and '
+                       'get_orbits_from_slc_ids_hyp3lib replaced by the local EOF; HRRR\'s '
+                       'download replaced by a cut of the CONUS raw file')
+    say(json.dumps({'workflow': record}))
+    return launches, record
+
+
 def phase_weather_models(torch, kernels):
     """Phase 8: weather models from raw files (8a-8c) and the CRSs (8d),
-    then phase 9 (point requests) in the same directory. Returns the summed
-    launches of phase 8's paths and of phase 9's."""
+    then phase 9 (point requests) and phase 10 (the workflow) in the same
+    directory. Returns the summed launches of phase 8's paths, of phase
+    9's and of phase 10's."""
     import shutil
 
     from raider_tpu_torch.scripts import card
@@ -1728,11 +2233,13 @@ def phase_weather_models(torch, kernels):
         crs = phase_crs(torch, card_s)
         record = dict(card=card_s, hrrr_conus=hrrr, families=families, crs=crs, launches=launches)
         say(json.dumps({'weather_models': record}))
-        # phase 9 reuses 8a's raw HRRR CONUS file
+        # phase 9 reuses 8a's raw HRRR CONUS file; phase 10 that file and
+        # phase 9's inputs
         launches_pt, _ = phase_points(torch, kernels, tmp, card_s)
+        launches_wf, _ = phase_workflow(torch, kernels, tmp, card_s)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    return launches, launches_pt
+    return launches, launches_pt, launches_wf
 
 
 def main() -> int:
@@ -1777,21 +2284,24 @@ def main() -> int:
     launches_k, prof = phase_profile(torch, kernels)
     launches_l, large = phase_large(torch, kernels)
     say(json.dumps({'large_cubes': large}))
-    launches_wx, launches_pt = phase_weather_models(torch, kernels)
+    launches_wx, launches_pt, launches_wf = phase_weather_models(torch, kernels)
 
     record = {'kernels': [
         {'name': 'ztd_totals', 'route': 'cuda', 'source': 'raider_tpu_torch/csrc/ztd_totals.cu',
          'replaces': 'raider_tpu/ops/pallas_ztd.py:31',
-         'launches': launches['ztd_totals'] + launches_wx['ztd_totals'] + launches_pt['ztd_totals'],
+         'launches': (launches['ztd_totals'] + launches_wx['ztd_totals']
+                      + launches_pt['ztd_totals'] + launches_wf['ztd_totals']),
          'launches_phase_8': launches_wx['ztd_totals'],
-         'launches_phase_9': launches_pt['ztd_totals'], **measured['ztd_totals']},
+         'launches_phase_9': launches_pt['ztd_totals'],
+         'launches_phase_10': launches_wf['ztd_totals'], **measured['ztd_totals']},
         {'name': 'brick_integrate', 'route': 'cuda',
          'source': 'raider_tpu_torch/csrc/brick_integrate.cu',
          'replaces': 'raider_tpu/delay/raytrace.py:704',
          'launches': (launches['brick_integrate'] + launches_wx['brick_integrate']
-                      + launches_pt['brick_integrate']),
+                      + launches_pt['brick_integrate'] + launches_wf['brick_integrate']),
          'launches_phase_8': launches_wx['brick_integrate'],
          'launches_phase_9': launches_pt['brick_integrate'],
+         'launches_phase_10': launches_wf['brick_integrate'],
          **measured['brick_integrate'], 'ptxas': ptxas.get('f32 3x3')},
         {'name': 'window_integrate', 'route': 'cuda',
          'source': 'raider_tpu_torch/csrc/window_integrate.cu',

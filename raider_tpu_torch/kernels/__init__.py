@@ -10,6 +10,9 @@ Each launcher takes device pointers and torch's current stream, allocates
 nothing, and returns ``cudaGetLastError()``; a non-zero code raises here.
 ``LAUNCHES`` counts the launches of each kernel (one per launcher call that
 reached the kernel), so a caller can show that a run went through them.
+The first build and load, and each count, hold a lock: the calc-delays
+workflow launches B1 from its prefetch thread while the main thread
+launches B2.
 ``nvcc`` runs with ``-Xptxas -v``; :func:`ptxas_resources` reads each
 kernel's registers and spills from the build's log.
 """
@@ -20,6 +23,7 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -52,13 +56,21 @@ LAUNCHES = {'ztd_totals': 0, 'brick_integrate': 0, 'brick_integrate_i16': 0,
 PROBE_DTYPES = {'bf16': torch.bfloat16, 'f16': torch.float16, 'i16': torch.int16}
 
 _lib = None
+_LIB_LOCK = threading.Lock()     # the first build and load of the library
+_COUNT_LOCK = threading.Lock()   # LAUNCHES
 build_seconds = None   # wall time of the build in this process (None: loaded a cached .so)
 BUILD_LOG = {}         # nvcc's messages per source, from the build in this process
 
 
 def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _COUNT_LOCK:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+
+
+def _count(name: str) -> None:
+    with _COUNT_LOCK:
+        LAUNCHES[name] += 1
 
 
 def _sources():
@@ -90,7 +102,7 @@ def build() -> Path:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
-    tag = f'{out.stem}.{os.getpid()}'
+    tag = f'{out.stem}.{os.getpid()}.{threading.get_ident()}'
     t0 = time.perf_counter()
     jobs = []
     for src in sorted(CSRC.glob('*.cu')):
@@ -104,7 +116,7 @@ def build() -> Path:
         BUILD_LOG[src.name] = err
         if proc.returncode != 0:
             errors.append(f'{src.name} ({proc.returncode}):\n{err}')
-    tmp = out.with_suffix(f'.{os.getpid()}.tmp')
+    tmp = out.with_suffix(f'.{tag}.tmp')
     try:
         if errors:
             raise RuntimeError('nvcc failed: ' + '\n'.join(errors))
@@ -181,84 +193,92 @@ def brick_launch_shape(wy: int, wx: int, itemsize: int, G: int, n_groups: int) -
 
 
 def lib() -> ctypes.CDLL:
-    """The loaded kernel library, built on first use."""
-    global _lib
+    """The loaded kernel library, built on first use (once, whichever
+    thread gets here first)."""
     if _lib is None:
-        so = ctypes.CDLL(str(build()))
-        p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-        so.ztd_totals_launch.argtypes = [p, p, p, p, p, p, i, ll, ll, ll, f, f, f, p]
-        so.ztd_totals_launch.restype = i
-        so.brick_integrate_launch.argtypes = [
-            p,                   # table
-            p, p, p, p, p, p,    # bnd_y, bnd_x, bnd_z, d2, ray_len, re
-            p, p, p,             # plan_i, plan_f, anchor
-            p, p,                # y axis, x axis (non-uniform locate)
-            p,                   # out (2, N)
-            ll, i, i, i, i, i, i, i,      # n, n_groups, G, planes, wy, wx, ny, nx
-            f, f, f, i,          # y lo, hi, step, uniform
-            f, f, f, i,          # x lo, hi, step, uniform
-            f, f, i,             # z lo, hi, z_clip
-            i, ll,               # threads, dynamic shared bytes a block
-            p]                   # stream
-        so.brick_integrate_launch.restype = i
-        so.brick_integrate_i16_launch.argtypes = [
-            p,                   # int16 table
-            p, p, p, p, p, p,    # bnd_y, bnd_x, bnd_z, d2, ray_len, re
-            p, p, p,             # plan_i, plan_f, anchor
-            p, p,                # y axis, x axis
-            p, p,                # out (2, N), deq [sw, ow, sh, oh]
-            ll, i, i, i, i, i, i, i,      # n, n_groups, G, planes, wy, wx, ny, nx
-            f, f, f, i,          # y lo, hi, step, uniform
-            f, f, f, i,          # x lo, hi, step, uniform
-            f, f, i,             # z lo, hi, z_clip
-            i, ll,               # threads, dynamic shared bytes a block
-            p]                   # stream
-        so.brick_integrate_i16_launch.restype = i
-        so.brick_contract_launch.argtypes = [p, p, p, p, p, ll, i, i, i, i, p]
-        so.brick_contract_launch.restype = i
-        so.brick_contract_shape.argtypes = [i, i, i, i, ctypes.POINTER(i), ctypes.POINTER(ll)]
-        so.brick_contract_shape.restype = i
-        so.brick_group_rows_launch.argtypes = [
-            p, p, p, p, p, p, p,  # brickT, by, bx, bz, d2, rl, aux
-            p, p, p,              # plan_i, plan_f, out
-            ll, i,                # n, S
-            f, f, f, f, f, f,     # y lo, hi, x lo, hi, z lo, hi
-            f, f, i, i, i, i,     # inv_sy, inv_sx, ny, nx, wy, wx
-            p]                    # stream
-        so.brick_group_rows_launch.restype = i
-        so.brick_group_merged_launch.argtypes = [
-            p, p, p, p, p,        # brick, merged, plan_i, plan_f (host), out
-            ll, i, i, i, i,       # n, S, width, nb, nl
-            f, f, f, f, f, f,     # y lo, hi, x lo, hi, z lo, hi
-            f, f, i, i, i, i,     # inv_sy, inv_sx, ny, nx, wy, wx
-            p]                    # stream
-        so.brick_group_merged_launch.restype = i
-        so.brick_group_merged_shape.argtypes = [i, i, i, i, i, i, ctypes.POINTER(i),
-                                                ctypes.POINTER(ll)]
-        so.brick_group_merged_shape.restype = i
-        so.window_integrate_launch.argtypes = [
-            p, p, p, p, p,       # lo, hi, d2, ray_len, re
-            p,                   # cube (nz, ny, nxp, 2)
-            p, p, p, p,          # ay, ax, sched_i, sched_f
-            p,                   # out (2, N)
-            ll, i, i, i, i, i,   # n, L, n_groups, K, n_fetch, n_slots
-            i, i, i, i, i, i,    # wy, wx, tile, ny, nx, nxp
-            f, f, f, f,          # y lo, y inv, x lo, x inv
-            f, f, i,             # z lo, hi, z_clip
-            p]                   # stream
-        so.window_integrate_launch.restype = i
-        so.window_integrate_config.argtypes = [ctypes.POINTER(i)] * 2
-        so.window_integrate_config.restype = i
-        so.window_integrate_shape.argtypes = [i, i, i, i, ctypes.POINTER(i), ctypes.POINTER(ll)]
-        so.window_integrate_shape.restype = i
-        for dt in PROBE_DTYPES:
-            fn = getattr(so, f'probe_load_{dt}_launch')
-            fn.argtypes = [p, p, ll, p]
-            fn.restype = i
-        so.probe_bitcast_i16_bf16_launch.argtypes = [p, p, ll, p]
-        so.probe_bitcast_i16_bf16_launch.restype = i
-        _lib = so
+        with _LIB_LOCK:
+            if _lib is None:
+                _load()
     return _lib
+
+
+def _load() -> None:
+    """Build the library if needed, load it and declare its launchers."""
+    global _lib
+    so = ctypes.CDLL(str(build()))
+    p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+    so.ztd_totals_launch.argtypes = [p, p, p, p, p, p, i, ll, ll, ll, f, f, f, p]
+    so.ztd_totals_launch.restype = i
+    so.brick_integrate_launch.argtypes = [
+        p,                   # table
+        p, p, p, p, p, p,    # bnd_y, bnd_x, bnd_z, d2, ray_len, re
+        p, p, p,             # plan_i, plan_f, anchor
+        p, p,                # y axis, x axis (non-uniform locate)
+        p,                   # out (2, N)
+        ll, i, i, i, i, i, i, i,      # n, n_groups, G, planes, wy, wx, ny, nx
+        f, f, f, i,          # y lo, hi, step, uniform
+        f, f, f, i,          # x lo, hi, step, uniform
+        f, f, i,             # z lo, hi, z_clip
+        i, ll,               # threads, dynamic shared bytes a block
+        p]                   # stream
+    so.brick_integrate_launch.restype = i
+    so.brick_integrate_i16_launch.argtypes = [
+        p,                   # int16 table
+        p, p, p, p, p, p,    # bnd_y, bnd_x, bnd_z, d2, ray_len, re
+        p, p, p,             # plan_i, plan_f, anchor
+        p, p,                # y axis, x axis
+        p, p,                # out (2, N), deq [sw, ow, sh, oh]
+        ll, i, i, i, i, i, i, i,      # n, n_groups, G, planes, wy, wx, ny, nx
+        f, f, f, i,          # y lo, hi, step, uniform
+        f, f, f, i,          # x lo, hi, step, uniform
+        f, f, i,             # z lo, hi, z_clip
+        i, ll,               # threads, dynamic shared bytes a block
+        p]                   # stream
+    so.brick_integrate_i16_launch.restype = i
+    so.brick_contract_launch.argtypes = [p, p, p, p, p, ll, i, i, i, i, p]
+    so.brick_contract_launch.restype = i
+    so.brick_contract_shape.argtypes = [i, i, i, i, ctypes.POINTER(i), ctypes.POINTER(ll)]
+    so.brick_contract_shape.restype = i
+    so.brick_group_rows_launch.argtypes = [
+        p, p, p, p, p, p, p,  # brickT, by, bx, bz, d2, rl, aux
+        p, p, p,              # plan_i, plan_f, out
+        ll, i,                # n, S
+        f, f, f, f, f, f,     # y lo, hi, x lo, hi, z lo, hi
+        f, f, i, i, i, i,     # inv_sy, inv_sx, ny, nx, wy, wx
+        p]                    # stream
+    so.brick_group_rows_launch.restype = i
+    so.brick_group_merged_launch.argtypes = [
+        p, p, p, p, p,        # brick, merged, plan_i, plan_f (host), out
+        ll, i, i, i, i,       # n, S, width, nb, nl
+        f, f, f, f, f, f,     # y lo, hi, x lo, hi, z lo, hi
+        f, f, i, i, i, i,     # inv_sy, inv_sx, ny, nx, wy, wx
+        p]                    # stream
+    so.brick_group_merged_launch.restype = i
+    so.brick_group_merged_shape.argtypes = [i, i, i, i, i, i, ctypes.POINTER(i),
+                                            ctypes.POINTER(ll)]
+    so.brick_group_merged_shape.restype = i
+    so.window_integrate_launch.argtypes = [
+        p, p, p, p, p,       # lo, hi, d2, ray_len, re
+        p,                   # cube (nz, ny, nxp, 2)
+        p, p, p, p,          # ay, ax, sched_i, sched_f
+        p,                   # out (2, N)
+        ll, i, i, i, i, i,   # n, L, n_groups, K, n_fetch, n_slots
+        i, i, i, i, i, i,    # wy, wx, tile, ny, nx, nxp
+        f, f, f, f,          # y lo, y inv, x lo, x inv
+        f, f, i,             # z lo, hi, z_clip
+        p]                   # stream
+    so.window_integrate_launch.restype = i
+    so.window_integrate_config.argtypes = [ctypes.POINTER(i)] * 2
+    so.window_integrate_config.restype = i
+    so.window_integrate_shape.argtypes = [i, i, i, i, ctypes.POINTER(i), ctypes.POINTER(ll)]
+    so.window_integrate_shape.restype = i
+    for dt in PROBE_DTYPES:
+        fn = getattr(so, f'probe_load_{dt}_launch')
+        fn.argtypes = [p, p, ll, p]
+        fn.restype = i
+    so.probe_bitcast_i16_bf16_launch.argtypes = [p, p, ll, p]
+    so.probe_bitcast_i16_bf16_launch.restype = i
+    _lib = so
 
 
 def _check(name: str, code: int) -> None:
@@ -284,7 +304,7 @@ def launch_ztd_totals(t, p, e, dz, wet, hyd, k1, k2, k3, *, stride_z, stride_col
     code = lib().ztd_totals_launch(_ptr(t), _ptr(p), _ptr(e), _ptr(dz), _ptr(wet), _ptr(hyd),
                                    nz, ncol, stride_z, stride_col, k1, k2, k3, _stream())
     _check('ztd_totals', code)
-    LAUNCHES['ztd_totals'] += 1
+    _count('ztd_totals')
 
 
 def launch_brick_integrate(table, bnd_y, bnd_x, bnd_z, d2, ray_len, re, plan_i, plan_f,
@@ -306,7 +326,7 @@ def launch_brick_integrate(table, bnd_y, bnd_x, bnd_z, d2, ray_len, re, plan_i, 
         y_lo, y_hi, y_step, int(y_uniform), x_lo, x_hi, x_step, int(x_uniform),
         z_lo, z_hi, int(z_clip), threads, smem, _stream())
     _check(name, code)
-    LAUNCHES[name] += 1
+    _count(name)
 
 
 def brick_contract_shape(S: int, planes: int, wy: int, wx: int) -> tuple:
@@ -331,7 +351,7 @@ def launch_brick_contract(brick, scal, dzos, out_w, out_h, *, planes, wy, wx) ->
     code = lib().brick_contract_launch(_ptr(brick), _ptr(scal), dz, _ptr(out_w), _ptr(out_h),
                                        n, len(dzos), planes, wy, wx, _stream())
     _check('brick_contract', code)
-    LAUNCHES['brick_contract'] += 1
+    _count('brick_contract')
 
 
 def launch_brick_group_rows(brickT, by, bx, bz, d2, rl, aux, plan_i, plan_f, out, *,
@@ -343,7 +363,7 @@ def launch_brick_group_rows(brickT, by, bx, bz, d2, rl, aux, plan_i, plan_f, out
         _ptr(plan_i), _ptr(plan_f), _ptr(out), aux.shape[1], plan_i.shape[0], *consts,
         _stream())
     _check('brick_group_rows', code)
-    LAUNCHES['brick_group_rows'] += 1
+    _count('brick_group_rows')
 
 
 def brick_group_merged_shape(S: int, width: int, nb: int, nl: int, wy: int, wx: int) -> tuple:
@@ -373,7 +393,7 @@ def launch_brick_group_merged(brick, merged, plan_i, plan_f, out, *, nb, nl, con
         pf.ctypes.data_as(ctypes.c_void_p), _ptr(out), brick.shape[0], pi.shape[0],
         brick.shape[1], nb, nl, *consts, _stream())
     _check('brick_group_merged', code)
-    LAUNCHES['brick_group_merged'] += 1
+    _count('brick_group_merged')
 
 
 def window_integrate_config() -> tuple:
@@ -415,7 +435,7 @@ def launch_window_integrate(lo, hi, d2, ray_len, re, cube, ay, ax, sched_i, sche
         n, L, n_groups, K, n_fetch, n_slots, wy, wx, tile, ny, nx, nxp,
         y_lo, y_inv, x_lo, x_inv, z_lo, z_hi, int(z_clip), _stream())
     _check('window_integrate', code)
-    LAUNCHES['window_integrate'] += 1
+    _count('window_integrate')
 
 
 def launch_probe_load(x, out) -> None:
@@ -423,11 +443,11 @@ def launch_probe_load(x, out) -> None:
     suffix = {v: k for k, v in PROBE_DTYPES.items()}[x.dtype]
     code = getattr(lib(), f'probe_load_{suffix}_launch')(_ptr(x), _ptr(out), x.shape[0], _stream())
     _check('probe_load', code)
-    LAUNCHES['probe_load'] += 1
+    _count('probe_load')
 
 
 def launch_probe_bitcast_i16_bf16(x, out) -> None:
     """Kernel S5 on an (n, 128) int16 CUDA tensor (checked by the caller)."""
     code = lib().probe_bitcast_i16_bf16_launch(_ptr(x), _ptr(out), x.numel(), _stream())
     _check('probe_bitcast_i16_bf16', code)
-    LAUNCHES['probe_bitcast_i16_bf16'] += 1
+    _count('probe_bitcast_i16_bf16')

@@ -135,12 +135,13 @@ def write_hrrr(path, ak=False, nz=None, grid=None, seed=0, device='cuda'):
     return path
 
 
-def crop_hrrr(src, dst, ll_bounds) -> tuple:
+def crop_hrrr(src, dst, ll_bounds, q_scale: float = 1.0) -> tuple:
     """Write to ``dst`` what HRRR's fetcher (``wx.hrrr.download_hrrr_file``)
     writes for ``ll_bounds`` (SNWE), cut from the whole-grid raw file
     ``src``: the rows and columns ``get_bounds_indices`` finds on its
     latitude/longitude grid, with the longitudes taken modulo 360 as the
-    fetcher does. Returns the (y, x) shape written."""
+    fetcher does; the humidity ``q`` multiplied by ``q_scale`` (so that
+    cuts for several epochs differ). Returns the (y, x) shape written."""
     from scipy.io import netcdf_file
 
     from raider_tpu_torch.wx.hrrr import get_bounds_indices
@@ -156,10 +157,11 @@ def crop_hrrr(src, dst, ll_bounds) -> tuple:
                 g.createDimension(name, len(range(size)[cut[name]]) if name in cut else size)
             for name, var in f.variables.items():
                 out = g.createVariable(name, var.typecode(), var.dimensions)
-                out[...] = var.data[tuple(cut.get(d, slice(None)) for d in var.dimensions)]
+                data = var.data[tuple(cut.get(d, slice(None)) for d in var.dimensions)]
+                out[...] = data * np.float32(q_scale) if name == 'q' and q_scale != 1.0 else data
                 for k, v in var._attributes.items():
                     setattr(out, k, v)
-            del var   # the mapped file closes only when no array refers to it
+            del var, data   # the mapped file closes only when no array refers to it
     return y1 - y0, x1 - x0
 
 

@@ -536,11 +536,13 @@ class WeatherModel:
         return tuple(a.clone() if isinstance(a, torch.Tensor) else a.copy()
                      for a in (self._xs, self._ys, self._zs))
 
-    def write(self) -> str:
-        """Write :meth:`to_dataset` to the processed-model file (needs h5py)."""
+    def write(self, nc_format: str = 'NETCDF4') -> str:
+        """Write :meth:`to_dataset` to the processed-model file: netCDF4
+        through h5py, or classic netCDF-3 when ``nc_format`` is
+        ``'NETCDF3_64BIT_OFFSET'`` (see ``io.ncdf.write_nc``)."""
         if self._out_name is None:
             raise ValueError('write() needs the latitude/longitude bounds set before load()')
-        return write_nc(self.to_dataset(), self._out_name)
+        return write_nc(self.to_dataset(), self._out_name, nc_format=nc_format)
 
 
 def make_weather_model_filename(name: str, time: dt.datetime, ll_bounds) -> str:

@@ -52,13 +52,12 @@ def prepareWeatherModel(
     force_download: bool = False,
     *,
     device='cuda',
+    nc_format: str = 'NETCDF4',
 ):
     """Download (or reuse), process on ``device`` (the CUDA card unless the
-    caller names another) and write a weather model; returns the processed
-    filename."""
-    if makePlots:
-        raise NotImplementedError('weather-model plots (wx/plots.py) are not ported to '
-                                  'raider_tpu_torch yet (ROADMAP A8, with the workflows)')
+    caller names another) and write a weather model in ``nc_format`` (see
+    ``io.ncdf.write_nc``); returns the processed filename. ``makePlots``
+    plots a freshly processed model (``wx.plots``) before it is written."""
     if weather_model.get_latlon_bounds() is None:
         weather_model.set_latlon_bounds(ll_bounds)
 
@@ -107,8 +106,14 @@ def prepareWeatherModel(
     logger.debug('Mean hydrostatic refractivity: %f',
                  float(torch.nanmean(weather_model.getHydroRefractivity())))
 
+    if makePlots:
+        from raider_tpu_torch.wx import plots
+
+        plots.plot_wh(weather_model, savefig=True)
+        plots.plot_pqt(weather_model, savefig=True)
+
     try:
-        f = weather_model.write()
+        f = weather_model.write(nc_format=nc_format)
         containment = weather_model.checkContainment(ll_bounds)
     except Exception as e:
         logger.exception('Unable to save weathermodel to file')

@@ -130,3 +130,93 @@ def test_hdf5_still_goes_through_h5py(tmp_path, monkeypatch):
     with pytest.raises(ValueError, match='netCDF-3'):
         write_nc3(tmp_path / 'c.nc')
         t_ncdf.read_nc(tmp_path / 'c.nc', group='g')
+
+
+def _encoded_dataset():
+    """Every value netCDF-3 holds only through an encoding of write_nc."""
+    import torch
+
+    return t_ncdf.Dataset(
+        coords={'x': t_ncdf.Variable(('x',), np.arange(3.0), {'units': 'm'}),
+                'z': t_ncdf.Variable(('z',), np.array([0.0, 500.0]), {})},
+        variables={
+            'wet': t_ncdf.Variable(('z', 'x'), torch.arange(6, dtype=torch.float32).reshape(2, 3),
+                                   {'grid_mapping': 'proj', 'flag': True, 'n': 3, 'f': 0.1,
+                                    'arr': [1.5, 2.5], 'flags': np.array([True, False])}),
+            'proj': t_ncdf.Variable((), np.int64(-2147483647),
+                                    {'name': 'Zürich é', 'standard_parallel': [38.5]}),
+            'mask': t_ncdf.Variable(('z', 'x'),
+                                    np.array([[True, False, True], [False, False, True]]), {}),
+            'count': t_ncdf.Variable(('z',), np.array([1, 2], np.int16), {}),
+        },
+        attrs={'model_times_used': ['20200130T13:00:00', '20200130T14:00:00'],
+               'one_time': ['20200130T13:00:00'], 'Date1': 0, 'scale': np.float32(2.5),
+               'empty': '', 'title': 'delays'})
+
+
+def test_netcdf3_encodings_round_trip(tmp_path):
+    """Each value classic netCDF cannot hold reads back as it was written:
+    int64 and bool data, string lists, bools, non-ASCII text, Python
+    floats (not float32)."""
+    ds = _encoded_dataset()
+    path = t_ncdf.write_nc(ds, tmp_path / 'a.nc', nc_format='NETCDF3_64BIT_OFFSET')
+    with open(path, 'rb') as fh:
+        assert fh.read(4) == b'CDF\x02'
+    back = t_ncdf.read_nc(path)
+    assert set(back.coords) == {'x', 'z'} and set(back.variables) == set(ds.variables)
+    for name, var in list(ds.coords.items()) + list(ds.variables.items()):
+        a, b = t_ncdf.to_numpy(var.data), np.asarray(back[name].data)
+        assert a.dtype == b.dtype and tuple(back[name].dims) == tuple(var.dims), name
+        np.testing.assert_array_equal(a, b)
+        assert set(back[name].attrs) == set(var.attrs), name
+        for k, v in var.attrs.items():
+            np.testing.assert_array_equal(np.asarray(back[name].attrs[k]), np.asarray(v))
+    assert back.attrs['model_times_used'] == ds.attrs['model_times_used']
+    assert back.attrs['one_time'] == ['20200130T13:00:00']
+    assert back['wet'].attrs['flag'] is np.True_ and back['wet'].attrs['f'] == 0.1
+    assert back['wet'].attrs['f'].dtype == np.float64
+    assert back['proj'].attrs['name'] == 'Zürich é'
+    assert back.attrs['empty'] == '' and back.attrs['scale'].dtype == np.float32
+
+
+def test_netcdf3_and_netcdf4_read_back_alike(tmp_path):
+    ds = _encoded_dataset()
+    ds.variables['proj'].attrs['name'] = 'ascii'   # the netCDF4 writer stores ASCII text
+    a = t_ncdf.read_nc(t_ncdf.write_nc(ds, tmp_path / 'a.nc'))
+    b = t_ncdf.read_nc(t_ncdf.write_nc(ds, tmp_path / 'b.nc', nc_format='NETCDF3_64BIT_OFFSET'))
+    with open(tmp_path / 'a.nc', 'rb') as fh:
+        assert fh.read(4) == b'\x89HDF'
+    for name in list(ds.coords) + list(ds.variables):
+        np.testing.assert_array_equal(np.asarray(a[name].data), np.asarray(b[name].data))
+        assert np.asarray(a[name].data).dtype == np.asarray(b[name].data).dtype
+    # the netCDF4 reader gives a string array, the netCDF-3 one the list
+    assert [str(v) for v in a.attrs['model_times_used']] == b.attrs['model_times_used']
+
+
+@pytest.mark.parametrize('change,match', [
+    (lambda ds: ds.variables.__setitem__('big', t_ncdf.Variable(('z',), np.array([0, 2**40]))),
+     'int32 range'),
+    (lambda ds: ds.variables.__setitem__('u', t_ncdf.Variable(('z',), np.array([1, 2], np.uint8))),
+     'uint8'),
+    (lambda ds: ds.variables.__setitem__('c', t_ncdf.Variable(('z',), np.array([1j, 2j]))),
+     'complex'),
+    (lambda ds: ds.attrs.__setitem__('times', ['a\nb', 'c']), 'newline'),
+    (lambda ds: ds.attrs.__setitem__('none', []), 'empty'),
+    (lambda ds: ds.attrs.__setitem__('big', 2**40), 'int32 range'),
+    (lambda ds: ds.attrs.__setitem__('_nc3_bools', 'x'), 'reserve'),
+    (lambda ds: ds.attrs.__setitem__('obj', None), 'cannot store'),
+])
+def test_netcdf3_refuses_what_it_cannot_hold(tmp_path, change, match):
+    ds = _encoded_dataset()
+    change(ds)
+    with pytest.raises(ValueError, match=match):
+        t_ncdf.write_nc(ds, tmp_path / 'a.nc', nc_format='NETCDF3_64BIT_OFFSET')
+
+
+def test_netcdf3_has_no_groups_or_append(tmp_path):
+    ds = _encoded_dataset()
+    for kwargs in ({'group': 'science'}, {'mode': 'a'}):
+        with pytest.raises(ValueError, match='NETCDF4'):
+            t_ncdf.write_nc(ds, tmp_path / 'a.nc', nc_format='NETCDF3_64BIT_OFFSET', **kwargs)
+    with pytest.raises(ValueError, match='nc_format'):
+        t_ncdf.write_nc(ds, tmp_path / 'a.nc', nc_format='NETCDF3_CLASSIC')

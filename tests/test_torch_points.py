@@ -437,3 +437,10 @@ def test_crop_hrrr_writes_what_the_fetcher_keeps(tmp_path):
         assert g.variables['proj']._attributes == f.variables['proj']._attributes
     xs, ys, lons, lats, qs = load_weather_hrrr(dst, device='cpu')[:5]
     assert tuple(qs.shape) == (ny, nx, 6) and lats.shape == (ny, nx) and xs.size == nx
+    # q_scale scales the humidity of the cut, and nothing else
+    scaled = str(tmp_path / 'scaled.nc')
+    assert raw_weather.crop_hrrr(src, scaled, bounds, q_scale=1.25) == (ny, nx)
+    with netcdf_file(dst, 'r', mmap=False) as g, netcdf_file(scaled, 'r', mmap=False) as h:
+        np.testing.assert_array_equal(h.variables['q'][:], g.variables['q'][:] * np.float32(1.25))
+        for name in ('t', 'pres', 'z', 'latitude'):
+            np.testing.assert_array_equal(h.variables[name][:], g.variables[name][:])

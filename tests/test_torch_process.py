@@ -129,11 +129,15 @@ def test_force_download_reprocesses(tmp_path):
     assert 'wet_total' in read_nc(out)
 
 
-def test_download_only_and_plots(tmp_path):
+def test_download_only_and_plots(tmp_path, monkeypatch):
+    """download_only fetches and stops; makePlots writes the JAX package's
+    two plots of the fresh model (wx/plots.py, ported)."""
     t = _model(TorchModel, tmp_path)
     assert _prepare_torch(t, download_only=True) is None and t.fetch_count == 1
-    with pytest.raises(NotImplementedError, match='A8'):
-        _prepare_torch(_model(TorchModel, tmp_path), makePlots=True)
+    monkeypatch.chdir(tmp_path)
+    _prepare_torch(_model(TorchModel, tmp_path), makePlots=True)
+    assert sorted(p.name for p in tmp_path.glob('*.pdf')) == [
+        'MOCK_weather_hgt500.0_and_15000.0m.pdf', 'MOCK_weather_model_refractivity.pdf']
 
 
 def test_engine_on_the_written_file(tmp_path):

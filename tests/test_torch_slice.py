@@ -208,6 +208,9 @@ _NO_JAX_SCRIPT = textwrap.dedent('''
     sys.modules['jax'] = None          # any import of jax now raises
     sys.modules['h5py'] = None         # nor h5py: the card's machine has neither
     sys.modules['pandas'] = None       # nor pandas
+    sys.modules['raider_tpu'] = None   # nor the JAX package
+    sys.modules['yaml'] = None         # the run config is read without PyYAML
+    sys.modules['matplotlib'] = None   # plots import matplotlib when they plot
     import datetime as dt
     import os
     import tempfile
@@ -304,7 +307,35 @@ _NO_JAX_SCRIPT = textwrap.dedent('''
                                                              cube_spacing_in_m=10000.0),
                              Zenith(), height_levels=[0.0], device='cpu')
         assert np.isfinite(out['hydro'].data).all() and 1.5 < float(out['hydro'].data.mean()) < 3
-    assert not any(m in ('jax', 'pandas', 'h5py') or m.startswith(('jax.', 'raider_tpu.'))
+    # the calc-delays workflow through the CLI on a bbox config, netCDF-3
+    import raider_tpu_torch.cli.__main__
+    import raider_tpu_torch.types
+    import raider_tpu_torch.utils.misc
+    import raider_tpu_torch.wx.plots
+    from raider_tpu_torch.io import read_nc
+    from raider_tpu_torch.workflows import s1_timing, yaml_subset
+    with tempfile.TemporaryDirectory() as tmp:
+        wm = os.path.join(tmp, 'wm')
+        os.makedirs(wm)
+        raw_weather.write_ecmwf(make_raw_weather_data_filename(wm, 'ERA-5', t0), 'ERA5',
+                                box=(31.0, 36.0, -120.5, -115.0), device='cpu')
+        cfg = os.path.join(tmp, 'cfg.yaml')
+        with open(cfg, 'w') as f:
+            yaml_subset.dump({'weather_model': 'ERA5', 'date_group': {'date_start': 20200130},
+                              'time_group': {'time': '13:52:45'},
+                              'aoi_group': {'bounding_box': '33.2 33.8 -118.0 -117.4'},
+                              'height_group': {'height_levels': [0, 1000]},
+                              'runtime_group': {'output_directory': tmp,
+                                                'weather_model_directory': wm,
+                                                'verbose': False, 'cube_spacing_in_m': 20000}},
+                             f)
+        out = raider_tpu_torch.cli.__main__.main(
+            [cfg, '--nc_format', 'NETCDF3_64BIT_OFFSET'], device='cpu')
+        cube = read_nc(out[0])
+        assert np.isfinite(cube['hydro'].data).all() and cube['hydro'].data.shape[0] == 2
+        assert cube.attrs['model_times_used'] == ['20200130T13:52:45']
+    assert not any(m in ('jax', 'pandas', 'h5py', 'yaml', 'matplotlib')
+                   or m.startswith(('jax.', 'raider_tpu.', 'yaml.', 'matplotlib.'))
                    for m in sys.modules if sys.modules[m] is not None)
     print('NO_JAX_OK')
 ''')
@@ -367,6 +398,20 @@ def test_no_module_imports_jax():
     pat = re.compile(r'^\s*(import|from) (jax|raider_tpu)\b')
     root = os.path.join(REPO, 'raider_tpu_torch')
     for dirpath, _, files in os.walk(root):
+        for f in files:
+            if f.endswith('.py'):
+                with open(os.path.join(dirpath, f)) as fh:
+                    bad = [line for line in fh if pat.match(line)]
+                assert not bad, (f, bad)
+
+
+def test_no_module_imports_yaml_or_matplotlib_at_module_level():
+    """PyYAML (the run config has its own reader) and matplotlib (imported
+    inside the plot functions) stay off the port's module level."""
+    import re
+
+    pat = re.compile(r'^(import|from) (yaml|matplotlib)\b')
+    for dirpath, _, files in os.walk(os.path.join(REPO, 'raider_tpu_torch')):
         for f in files:
             if f.endswith('.py'):
                 with open(os.path.join(dirpath, f)) as fh:
