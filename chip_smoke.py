@@ -100,8 +100,35 @@ Phases, each printing one line; any failure exits non-zero:
      1 (1e-12); B1 at least once a fresh load, B2 in (b) and (d). Where
      matplotlib is importable, 10a once more with ``verbose: true`` must
      write the two plots.
+ 11. the GUNW and GNSS tools, in phase 8's temp dir on 8a's raw file (HRRR's
+     download replaced by its cuts, each epoch's q, p and T scaled by
+     seeded factors, ``s1_timing``'s look-ups by local EOFs of both
+     epochs): (a) ``workflows.gunw.run_gunw`` on the card from the
+     metadata record of a Sentinel-1 interferogram over 8b's Kansas box
+     (~200 x 200 km, epochs 12 days apart, HRRR at 0.05 deg, heights -500
+     to 9000 m, ``azimuth_time_grid``, cubes as netCDF-3), then its
+     packaging layout; gates: each phase array is float32(float64(delay) *
+     -4 pi / lambda) of its cube read back, bit for bit, the axes are the
+     cube's in float32, the names, dtypes and attributes a GUNW product
+     holds, phases finite and negative inside the frame, both phases of
+     the two epochs differ, each epoch's 0 m slice (B2 on the card) on a
+     64x64 sub-grid within 1e-5 m of the brick twin and of the float64
+     reference on the same operands, B1 once a fresh load and B2 in each
+     date; where h5py can be imported, the whole
+     ``calcDelaysGUNW --file`` on a GUNW written with h5py, its troposphere
+     group read back equal (else a line says it was not run); (b) 500
+     stations through ``++process downloadGNSS`` (each station's synthetic
+     UNR archive copied in place of the download; 288 epochs a day, a few
+     missing), calcDelays at the stations on the same two dates, and
+     ``gnss_combine``; gates: one GNSS row per station and date, each ZTD
+     the archive's TROTOT / 1000 at the nearest epoch with data, a merged
+     row per matched (ID, Datetime), ``ZTD_minus_RAiDER`` = ZTD -
+     totalDelay bit for bit; (c) ``gacos.main`` on a seeded .ztd grid read
+     back by the ENVI reader; and, in phase 3, the stage timers' report
+     after its two requests (every JAX stage name present, the stages'
+     sums within the requests' wall times).
 
-Phases 3 to 10 each start with the launch counts at 0 and read them when
+Phases 3 to 11 each start with the launch counts at 0 and read them when
 their path ends; the comparisons after that do not count. The line before
 the last is a JSON record of the kernels (with each kernel's bound: the
 least time the card could take for the same work, from the bytes each
@@ -198,6 +225,16 @@ WF_SPACING_M = 2000.0            # cube_spacing_in_m of every config
 WF_STATION_TIME = PT_TIME.replace(minute=45)   # 10c: between the 12:00 and 13:00 epochs
 WF_CENTER_WEIGHTS = (0.25, 0.75)
 WF_CENTER_TOL = 1e-5             # metres, 10c vs the weighted delays of the two epochs
+GUNW_REF = PT_TIME                                      # 11a: the reference epoch
+GUNW_SEC = PT_TIME - dt.timedelta(days=12)              # and the secondary, 12 days earlier
+GUNW_NAME = (f'S1-GUNW-A-R-064-tops-{GUNW_REF:%Y%m%d}_{GUNW_SEC:%Y%m%d}-120000-'
+             '38400N_36600N-PP-0000-v3_0_0.nc')
+GUNW_POLYGON = [(-99.88, 36.6), (-97.62, 36.6), (-97.62, 38.4), (-99.88, 38.4), (-99.88, 36.6)]
+GUNW_WAVELENGTH = 0.05546576     # m, Sentinel-1 C band
+N_GNSS = 500                     # 11b: stations in phase 8b's Kansas box
+GNSS_DATES = (PT_TIME.date() - dt.timedelta(days=1), PT_TIME.date())
+GNSS_GAPS = 4                    # epochs missing a day in each archive
+GACOS_SHAPE = (240, 300)         # 11c: a GACOS .ztd grid (rows, columns)
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM published peaks (NVIDIA data sheet)
 F32_FLOP_PER_S = 67e12
 
@@ -484,6 +521,33 @@ def polar_orbit():
                  ref_time=dt.datetime(2020, 1, 1, 12, 0, 0))
 
 
+def stage_gates(report, stages) -> None:
+    """Phase 11c: the engine's stage timers over phase 3's two requests,
+    printed as one line. Every JAX stage name is there, and the stages'
+    sums fit the wall times: the zenith and raytraced cubes in their
+    requests, the disjoint steps of the slices (geometry, integrate, the
+    final fetch) in the raytraced cube, and a slice's look vectors and
+    intersections in its geometry."""
+    say('phase 11c stage report after phase 3\'s requests (host wall clock, no added '
+        'synchronization; s): ' + json.dumps({k: {'total_s': round(v['total_s'], 6),
+                                                    'calls': v['calls']}
+                                                for k, v in report.items()}))
+    names = ('delay.ztd_cube', 'delay.raytrace_cube', 'raytrace.device_geometry',
+             'raytrace.look_vectors', 'raytrace.build_ray', 'raytrace.integrate',
+             'raytrace.final_fetch')
+    check(set(names) <= set(report), f'11c: stage names {sorted(report)} lack some of {names}')
+    s = {k: report[k]['total_s'] for k in names}
+    check(s['delay.ztd_cube'] <= stages['zenith_s']
+          and s['delay.raytrace_cube'] <= stages['raytrace_s']
+          and s['delay.ztd_cube'] + s['delay.raytrace_cube'] <= stages['zenith_s']
+          + stages['raytrace_s']
+          and s['raytrace.device_geometry'] + s['raytrace.integrate']
+          + s['raytrace.final_fetch'] <= s['delay.raytrace_cube']
+          and s['raytrace.look_vectors'] + s['raytrace.build_ray']
+          <= s['raytrace.device_geometry'],
+          f'11c: the stages do not fit the wall times: {s}, {stages}')
+
+
 def phase_main_path(torch, kernels, b2_incoherent_ms):
     """Phase 3: the main path through the user entry points; returns its
     launch counts, B2's time on its 0 m slice and ``_get_ztd``'s times."""
@@ -494,6 +558,7 @@ def phase_main_path(torch, kernels, b2_incoherent_ms):
     from raider_tpu_torch.geometry import BoundingBox, Raytracing, Zenith
     from raider_tpu_torch.ops.interp import interp3d_points
     from raider_tpu_torch.scripts import cuda_ms, device_ms
+    from raider_tpu_torch.utils.profiling import stage_report
 
     when = dt.datetime(2020, 1, 1, 12, 0, 0)
     model = smoke_model_class()()
@@ -510,6 +575,7 @@ def phase_main_path(torch, kernels, b2_incoherent_ms):
     torch.cuda.synchronize()
     stages['weather_model_s'] = time.perf_counter() - t0
 
+    stage_report(reset=True)
     t0 = time.perf_counter()
     aoi_z = BoundingBox(BBOX, cube_spacing_in_m=SPACING_M)
     ds_z, _ = engine.tropo_delay(when, ds_wm, aoi_z, Zenith(), height_levels=HEIGHTS,
@@ -524,6 +590,7 @@ def phase_main_path(torch, kernels, b2_incoherent_ms):
     torch.cuda.synchronize()
     stages['raytrace_s'] = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
+    report = stage_report(reset=True)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     steps_model = smoke_model_class()()
     steps_model.setTime(when)
@@ -555,6 +622,7 @@ def phase_main_path(torch, kernels, b2_incoherent_ms):
     check(1.0 < slant < 2.0, f'slant/zenith hydrostatic ratio {slant} outside 1-2')
     check(launches['ztd_totals'] >= 1 and launches['brick_integrate'] >= 1,
           f'a kernel was not launched on the main path: {launches}')
+    stage_gates(report, stages)
 
     # zenith cube (separable fp32 contractions) vs a float64 8-corner gather
     # on 4096 pixels: f32 rounding of ~2.5 m totals stays well under 1e-6 m
@@ -978,8 +1046,8 @@ def timed_calls(torch, owner, names):
     """While open, calls of ``owner``'s functions or methods ``names`` (a
     module's, or an object's) record their seconds (the device synchronized
     before and after each), their count and the last call's arguments and
-    result into the dict it yields."""
-    rec = {n: {'seconds': 0.0, 'calls': 0} for n in names}
+    result into the dict it yields (``each``: every call's seconds)."""
+    rec = {n: {'seconds': 0.0, 'calls': 0, 'each': []} for n in names}
     own = {n: vars(owner).get(n) for n in names}
 
     def wrap(name, fn):
@@ -989,7 +1057,8 @@ def timed_calls(torch, owner, names):
             out = fn(*args, **kwargs)
             torch.cuda.synchronize()
             r = rec[name]
-            r['seconds'] += time.perf_counter() - t0
+            r['each'].append(time.perf_counter() - t0)
+            r['seconds'] += r['each'][-1]
             r['calls'] += 1
             r['args'], r['out'] = args, out
             return out
@@ -1086,13 +1155,13 @@ def rays_f64(torch, wm, geom, flat, re_local):
                                          py, px, pz)).sum(0) for k in ('wet', 'hydro')]
 
 
-def subgrid_check(torch, wm, ds_r, los, zref):
-    """The 0 m slice of a raytraced request on a 64x64 sub-grid against
-    references from the same geometry: the brick twin (kernel B2/K4's) for
-    a brick mode, and for every mode the float64 reference of
-    :func:`rays_f64`. Returns (mode, max |diff| to the twin or None, to
-    the float64 reference, seconds of the slice's geometry, ms of its
-    integrate)."""
+def subgrid_check(torch, wm, ds_r, los, zref, height=WX_HEIGHTS[0]):
+    """The slice at ``height`` (0 m) of a raytraced request on a 64x64
+    sub-grid against references from the same geometry: the brick twin
+    (kernel B2/K4's) for a brick mode, and for every mode the float64
+    reference of :func:`rays_f64`. Returns (mode, max |diff| to the twin or
+    None, to the float64 reference, seconds of the slice's geometry, ms of
+    its integrate)."""
     from raider_tpu_torch.delay import engine
     from raider_tpu_torch.delay.raytrace import (integrate_bricks_ref, integrate_rays,
                                                  pack_cubes, slice_plan)
@@ -1105,13 +1174,14 @@ def subgrid_check(torch, wm, ds_r, los, zref):
     lon = torch.as_tensor(xx.ravel(), dtype=torch.float64, device=DEVICE)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    geom = engine._slice_geometry(wm, lat, lon, WX_HEIGHTS[0], los, zref)
+    geom = engine._slice_geometry(wm, lat, lon, height, los, zref)
     torch.cuda.synchronize()
     geom_s = time.perf_counter() - t0
     rows = np.linspace(0, ys_o.size - 1, 64).round().astype(int)
     cols = np.linspace(0, xs_o.size - 1, 64).round().astype(int)
     flat = torch.as_tensor((rows[:, None] * xs_o.size + cols[None, :]).ravel(), device=DEVICE)
-    main = [np.asarray(ds_r[k].data)[0][rows[:, None], cols[None, :]].ravel()
+    hh = int(np.flatnonzero(np.asarray(ds_r.coords['z'].data) == height)[0])
+    main = [np.asarray(ds_r[k].data)[hh][rows[:, None], cols[None, :]].ravel()
             for k in ('wet', 'hydro')]
 
     def err(w, h):
@@ -1740,18 +1810,20 @@ def phase_points(torch, kernels, tmp, card_s):
 def local_hrrr_fetcher(conus_raw):
     """HRRR's download (``wx.hrrr.download_hrrr_file``) replaced by a cut of
     the CONUS raw file for the bounds it is asked for
-    (``raw_weather.crop_hrrr``), the humidity of each epoch scaled by a
-    factor drawn from the seed and the epoch; yields the list of (epoch,
-    scale) cut."""
+    (``raw_weather.crop_hrrr``), the humidity, pressure and temperature of
+    each epoch scaled by factors drawn from the seed and the epoch (q by
+    0.8-1.2, p by 0.98-1.02, T by 0.99-1.01); yields the list of (epoch,
+    (q, p, T) scales) cut."""
     from raider_tpu_torch.scripts import raw_weather
     from raider_tpu_torch.wx import hrrr
 
     cuts, own = [], hrrr.download_hrrr_file
 
     def fetch(ll_bounds, date, out, model='hrrr', product='nat', fxx=0, verbose=False):
-        scale = float(np.random.default_rng(SEED + int(date.strftime('%d%H'))).uniform(0.8, 1.2))
-        raw_weather.crop_hrrr(conus_raw, out, ll_bounds, q_scale=scale)
-        cuts.append((date, scale))
+        rng = np.random.default_rng(SEED + int(date.strftime('%d%H')))
+        q, p, t = (float(v) for v in rng.uniform([0.8, 0.98, 0.99], [1.2, 1.02, 1.01]))
+        raw_weather.crop_hrrr(conus_raw, out, ll_bounds, q_scale=q, p_scale=p, t_scale=t)
+        cuts.append((date, (q, p, t)))
 
     hrrr.download_hrrr_file = fetch
     try:
@@ -1957,7 +2029,7 @@ def run_case(torch, kernels, cfg, conus_raw) -> dict:
     return dict(paths=[str(p) for p in paths], seconds=sec, launches=launches,
                 fresh_loads=sum(fresh for fresh, _ in loads),
                 load_threads=sorted({name for _, name in loads}), writes=writes,
-                epochs=[(d.isoformat(), round(s, 4)) for d, s in cuts],
+                epochs=[(d.isoformat(), [round(v, 4) for v in s]) for d, s in cuts],
                 peak_gb=torch.cuda.max_memory_allocated() / 1e9)
 
 
@@ -2214,6 +2286,443 @@ def phase_workflow(torch, kernels, tmp, card_s):
     return launches, record
 
 
+@contextlib.contextmanager
+def local_s1_lookups(eofs):
+    """``s1_timing``'s two network look-ups (the ASF catalogue, the orbit
+    download) answered by the local EOF files ``eofs``."""
+    from raider_tpu_torch.workflows import s1_timing
+
+    own = (s1_timing.get_slc_ids_from_time, s1_timing.get_orbits_from_slc_ids_hyp3lib)
+    s1_timing.get_slc_ids_from_time = lambda lon, lat, time: ['S1A_local_EOF']
+    s1_timing.get_orbits_from_slc_ids_hyp3lib = lambda ids, orbit_directory=None: list(eofs)
+    try:
+        yield
+    finally:
+        s1_timing.get_slc_ids_from_time, s1_timing.get_orbits_from_slc_ids_hyp3lib = own
+
+
+@contextlib.contextmanager
+def plots_where_possible():
+    """The plots of each fresh model (``wx.plots``, ``verbose`` is on in a
+    GUNW run config) need matplotlib; where it cannot be imported they are
+    replaced by a counter of the calls. Yields the count (None when the
+    plots ran)."""
+    import importlib.util
+
+    from raider_tpu_torch.wx import plots
+
+    if importlib.util.find_spec('matplotlib') is not None:
+        os.environ.setdefault('MPLBACKEND', 'Agg')
+        yield None
+        return
+    calls = [0]
+    own = (plots.plot_wh, plots.plot_pqt)
+
+    def count(*args, **kwargs):
+        calls[0] += 1
+    plots.plot_wh = plots.plot_pqt = count
+    try:
+        yield calls
+    finally:
+        plots.plot_wh, plots.plot_pqt = own
+
+
+@contextlib.contextmanager
+def b2_per_call(kernels, owner, name):
+    """Each call of ``owner.name``: a list it yields of (B2 launches in the
+    call, its arguments, its keyword arguments, its result)."""
+    per, own = [], getattr(owner, name)
+
+    def counted(*args, **kwargs):
+        before = kernels.LAUNCHES['brick_integrate']
+        out = own(*args, **kwargs)
+        per.append((kernels.LAUNCHES['brick_integrate'] - before, args, kwargs, out))
+        return out
+    setattr(owner, name, counted)
+    try:
+        yield per
+    finally:
+        setattr(owner, name, own)
+
+
+def gunw_metadata(root):
+    """11a's GUNW metadata record: a Sentinel-1 interferogram over phase
+    8b's Kansas box (a ~200 x 200 km frame around 37.5 N, -98.75 E),
+    reference and secondary granules 12 days apart (24 s each around
+    12:00:00)."""
+    from raider_tpu_torch.workflows.gunw import GUNWMetadata
+
+    def granule(day, n):
+        t0 = dt.datetime.combine(day.date(), dt.time(11, 59, 48))
+        return (f'S1A_IW_SLC__1SDV_{t0:%Y%m%dT%H%M%S}_'
+                f'{t0 + dt.timedelta(seconds=24):%Y%m%dT%H%M%S}_03857{n}_048D2{n}_00{n}{n}.zip')
+    xs, ys = zip(*GUNW_POLYGON)
+    wkt = 'POLYGON ((' + ', '.join(f'{x} {y}' for x, y in GUNW_POLYGON) + '))'
+    return GUNWMetadata(path=os.path.join(root, GUNW_NAME), bbox_wkt=wkt,
+                        granules={'reference': [granule(GUNW_REF, 1)],
+                                  'secondary': [granule(GUNW_SEC, 2)]},
+                        wavelength=GUNW_WAVELENGTH,
+                        data_extent=(min(xs), min(ys), max(xs), max(ys)))
+
+
+def gunw_layout_gates(run, layout):
+    """11a's gates on the run and on the packaging layout (the names,
+    dtypes and attributes tests/test_gunw_schema.py asserts of a written
+    product); returns the record."""
+    from raider_tpu_torch.geodesy.crs import crs_from_wkt
+    from raider_tpu_torch.io import read_nc
+    from raider_tpu_torch.utils.geom2d import point_in_polygon
+    from raider_tpu_torch.workflows.gunw import DIM_NAMES, TROPO_GROUP, TROPO_NAMES
+
+    rec = {}
+    check(len(run.cube_paths) == 2 and len(set(run.cube_paths)) == 2,
+          f'11a: cubes {run.cube_paths}')
+    phase2range = (-4 * np.pi) / GUNW_WAVELENGTH
+    cubes = {}
+    for path in run.cube_paths:
+        with open(path, 'rb') as f:
+            check(f.read(4) in (b'CDF\x01', b'CDF\x02'), f'11a: {path} is not netCDF-3')
+        day = dt.datetime.strptime(os.path.basename(path).split('_')[2], '%Y%m%dT%H%M%S')
+        cubes['reference' if day.date() == GUNW_REF.date() else 'secondary'] = read_nc(path)
+    check(set(cubes) == {'reference', 'secondary'}, f'11a: cube dates {run.cube_paths}')
+    check(layout['group'] == f'{TROPO_GROUP}/HRRR' and set(layout['epochs']) == set(cubes),
+          f'11a: layout group {layout["group"]}, epochs {sorted(layout["epochs"])}')
+    poly = [tuple(p) for p in GUNW_POLYGON]
+    exact, inside_ok, n_inside = True, True, 0
+    for rs, ds in cubes.items():
+        ep = layout['epochs'][rs]
+        check(list(ep['dims']) == DIM_NAMES and sorted(ep['variables']) == sorted(TROPO_NAMES),
+              f'11a: {rs} layout names {list(ep["dims"])}, {sorted(ep["variables"])}')
+        for dim, axis in zip(DIM_NAMES, ('z', 'y', 'x')):
+            want = np.asarray(ds.coords[axis].data, dtype=np.float32)
+            check(ep['dims'][dim].dtype == np.float32 and np.array_equal(ep['dims'][dim], want),
+                  f'11a: {rs} {dim} is not the cube\'s {axis} in float32')
+        heights, lats, lons = (ep['dims'][d] for d in DIM_NAMES)
+        check(np.array_equal(heights, np.arange(-500, 9500, 500).astype(np.float32)),
+              f'11a: heights {heights}')
+        for axis, lo, hi in ((lats, 36.6, 38.4), (lons, -99.88, -97.62)):
+            check(np.allclose(np.diff(axis), np.diff(axis).mean(), atol=1e-4)
+                  and axis.min() >= lo - 0.8 and axis.max() <= hi + 0.8,
+                  f'11a: {rs} axis {axis.min()}..{axis.max()} not a uniform grid over the frame')
+        crs = ep['crs']
+        check(crs['attrs'].get('grid_mapping_name') == b'latitude_longitude'
+              and crs_from_wkt(crs['wkt']['crs_wkt'].decode()).to_epsg() == 4326,
+              f'11a: {rs} crs {crs["attrs"]}')
+        inside = np.array([[point_in_polygon((float(x), float(y)), poly) for x in lons]
+                           for y in lats])
+        n_inside = int(inside.sum())
+        for name, var in zip(TROPO_NAMES, ('wet', 'hydro')):
+            v = ep['variables'][name]
+            want = (np.asarray(ds[var].data, dtype=np.float64) * phase2range).astype(np.float32)
+            exact &= (v['data'].dtype == np.float32 and v['dims'] == DIM_NAMES
+                      and np.array_equal(v['data'], want, equal_nan=True)
+                      and np.array_equal(run.arrays[f'{rs}_{name}'].astype(np.float32), want,
+                                         equal_nan=True))
+            a = v['attrs']
+            check(v['data'].shape == (heights.size, lats.size, lons.size)
+                  and a['units'] == b'radians' and a['grid_mapping'] == b'crs'
+                  and a['long_name'] == a['standard_name'] == name.encode(),
+                  f'11a: {rs} {name} layout attrs {a}, shape {v["data"].shape}')
+            sel = v['data'][:, inside]
+            inside_ok &= bool(np.isfinite(sel).all() and (sel < 0).all())
+            rec[f'{rs}_{name}_mean_rad'] = float(np.nanmean(sel))
+    epochs = layout['epochs']
+    differ = {name: not np.array_equal(epochs['reference']['variables'][name]['data'],
+                                       epochs['secondary']['variables'][name]['data'],
+                                       equal_nan=True) for name in TROPO_NAMES}
+    rec.update(phases_bit_for_bit=bool(exact), inside_pixels=n_inside,
+               finite_negative_inside=inside_ok, epochs_differ=differ,
+               cube_shape=list(epochs['reference']['variables'][TROPO_NAMES[0]]['data'].shape))
+    check(exact, '11a: a phase array is not float32(float64(delay) * -4 pi / lambda) of its cube')
+    check(n_inside > 0 and inside_ok, '11a: a phase inside the frame is not finite and negative')
+    check(all(differ.values()), f'11a: the reference and secondary phases are equal: {differ}')
+    return rec
+
+
+def gunw_slice_checks(torch, calls):
+    """11a's raytraced 0 m slice of each epoch, as the run's ``tropo_delay``
+    computed it (B2 on the card), against the brick twin and the float64
+    reference on the same operands (:func:`subgrid_check`); ``calls`` are
+    :func:`b2_per_call`'s records. Returns a record per epoch."""
+    from raider_tpu_torch.delay import engine
+
+    out = []
+    for _, args, kwargs, (ds, _) in calls:
+        when, wm_file, _, los = args[:4]
+        wm = engine.WeatherCube(wm_file, DEVICE)
+        toa = float(wm.zs.max() - 1)
+        zref = kwargs.get('zref')
+        zref = toa if zref is None or zref > toa else zref
+        mode, twin_err, ref_err, _, _ = subgrid_check(torch, wm, ds, los, zref, height=0.0)
+        out.append(dict(epoch=when.isoformat(), mode=mode, twin_err_m=twin_err,
+                        f64_err_m=ref_err))
+        check(twin_err is not None and twin_err <= SUBGRID_TOL,
+              f'11a {when}: the 0 m slice vs the brick twin {twin_err} m > {SUBGRID_TOL} m '
+              f'(mode {mode})')
+        check(ref_err <= SUBGRID_TOL,
+              f'11a {when}: the 0 m slice vs the float64 reference {ref_err} m > {SUBGRID_TOL} m')
+    return out
+
+
+def phase_gunw(torch, kernels, tmp, card_s, conus_raw, eofs):
+    """Phase 11a: the GUNW compute path (``workflows.gunw.run_gunw``) from a
+    metadata record on the card, cubes as netCDF-3, HRRR cut from 8a's
+    CONUS raw file at each epoch; then its packaging layout; then, where
+    h5py is importable, the whole ``calcDelaysGUNW --file``."""
+    import importlib.util
+
+    from raider_tpu_torch.workflows import calc_delays, gunw
+    from raider_tpu_torch.wx.base import WeatherModel
+
+    root = tempfile.mkdtemp(prefix='phase11a_', dir=tmp)
+    meta = gunw_metadata(root)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    with local_hrrr_fetcher(conus_raw) as cuts, local_s1_lookups(eofs), \
+            plots_where_possible() as plot_calls, recorded_loads() as loads, \
+            b2_per_call(kernels, calc_delays, 'tropo_delay') as calls, \
+            timed_calls(torch, calc_delays, ('prepareWeatherModel', 'combine_weather_files',
+                                             'tropo_delay')) as cd, \
+            timed_calls(torch, WeatherModel, ('fetch', 'load')) as wm, \
+            timed_calls(torch, gunw, ('prep_from_gunw', 'compute_delays_slc')) as gw, \
+            contextlib.chdir(root):
+        t0 = time.perf_counter()
+        run = gunw.run_gunw(meta, 'HRRR', os.path.join(root, 'out'),
+                            interpolate_time='azimuth_time_grid', device=DEVICE,
+                            nc_format='NETCDF3_64BIT_OFFSET')
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    t0 = time.perf_counter()
+    layout = gunw.troposphere_layout(run.model, run.arrays, run.coords, run.crs_attrs, run.attrs)
+    t_layout = time.perf_counter() - t0
+    rec = gunw_layout_gates(run, layout)
+    rec['slices_0m'] = gunw_slice_checks(torch, calls)
+    b2 = [n for n, *_ in calls]
+    fresh = sum(f for f, _ in loads)
+    rec.update(seconds={'run_gunw': total, 'run_config': gw['prep_from_gunw']['seconds'],
+                        'prepareWeatherModel_each': cd['prepareWeatherModel']['each'],
+                        'fetch_cut_each': wm['fetch']['each'], 'load_each': wm['load']['each'],
+                        'combine_each': cd['combine_weather_files']['each'],
+                        'tropo_delay_each': cd['tropo_delay']['each'],
+                        'phases': gw['compute_delays_slc']['seconds'], 'layout': t_layout},
+               launches=launches, b2_per_date=b2, fresh_loads=fresh, peak_gb=peak,
+               epochs=[(d.isoformat(), [round(v, 4) for v in s]) for d, s in cuts],
+               plots='ran' if plot_calls is None else f'replaced ({plot_calls[0]} calls)')
+    check(launches['ztd_totals'] >= fresh >= 1,
+          f'11a: B1 launched {launches["ztd_totals"]} times for {fresh} fresh loads')
+    check(len(b2) == 2 and min(b2) >= 1, f'11a: B2 launches per date {b2}')
+    if plot_calls is not None:
+        say(f'phase 11a [{card_s}] matplotlib cannot be imported here: the plots of each fresh '
+            f'model (verbose is on in a GUNW run config) were replaced by a counter '
+            f'({plot_calls[0]} calls); the CPU tests hold the plots')
+
+    if importlib.util.find_spec('h5py') is None:
+        rec['hdf5'] = 'not run: h5py cannot be imported on this machine'
+        say(f'phase 11a [{card_s}] the HDF5 step (calcDelaysGUNW --file on a GUNW written with '
+            'h5py, its troposphere group read back) was NOT run: h5py cannot be imported on '
+            'this machine; run_gunw and the packaging layout above were')
+    else:
+        from raider_tpu_torch.io import read_nc
+        from raider_tpu_torch.scripts import gunw_inputs
+        from raider_tpu_torch.wx import hrrr
+
+        product = os.path.join(root, 'h5', GUNW_NAME)
+        os.makedirs(os.path.dirname(product))
+        gunw_inputs.write_gunw(product, meta)
+        own = hrrr.check_hrrr_dataset_availability
+        hrrr.check_hrrr_dataset_availability = lambda t, model='hrrr': True   # no network here
+        try:
+            with local_hrrr_fetcher(conus_raw), local_s1_lookups(eofs), plots_where_possible(), \
+                    contextlib.chdir(os.path.dirname(product)):
+                t0 = time.perf_counter()
+                cubes = gunw.calcDelaysGUNW(['--file', product, '-o', os.path.dirname(product)],
+                                            device=DEVICE, nc_format='NETCDF3_64BIT_OFFSET')
+                t_file = time.perf_counter() - t0
+        finally:
+            hrrr.check_hrrr_dataset_availability = own
+        model, arrays, *_ = gunw.compute_delays_slc(cubes, GUNW_WAVELENGTH)
+        same = read_nc(product).attrs.get('version') == '1c'
+        for rs in ('reference', 'secondary'):
+            grp = read_nc(product, group=f'{gunw.TROPO_GROUP}/{model}/{rs}')
+            same &= all(np.array_equal(np.asarray(grp[name].data),
+                                       arrays[f'{rs}_{name}'].astype(np.float32), equal_nan=True)
+                        for name in gunw.TROPO_NAMES)
+        rec['hdf5'] = {'calcDelaysGUNW_file_s': t_file, 'group_reads_back_equal': bool(same)}
+        check(same, '11a: the troposphere group written with h5py differs from the arrays')
+    return launches, rec
+
+
+def phase_gnss(torch, kernels, tmp, card_s, conus_raw):
+    """Phase 11b: GNSS stations through ``++process downloadGNSS`` (the
+    archive download replaced by a copy of a local synthetic UNR archive),
+    the port's calcDelays at the stations on the same dates, and the
+    combination (``gnss_combine``)."""
+    import shutil
+
+    from raider_tpu_torch.cli.__main__ import main as cli
+    from raider_tpu_torch.scripts import gnss_inputs, point_inputs
+    from raider_tpu_torch.utils import table
+    from raider_tpu_torch.workflows import gnss, gnss_combine
+
+    root = tempfile.mkdtemp(prefix='phase11b_', dir=tmp)
+    rng = np.random.default_rng(SEED + 11)
+    s, n, w, e = WX_BOX
+    lat, lon = rng.uniform(s + 0.1, n - 0.1, N_GNSS), rng.uniform(w + 0.1, e - 0.1, N_GNSS)
+    stations = point_inputs.write_station_csv(os.path.join(root, 'stations.csv'), lat, lon,
+                                              rng.uniform(250.0, 800.0, N_GNSS))
+    ids = [f'S{i:05d}' for i in range(N_GNSS)]
+    doys = [d.timetuple().tm_yday for d in GNSS_DATES]
+    archive_dir = os.path.join(root, 'archives')
+    os.makedirs(archive_dir)
+    t0 = time.perf_counter()
+    written = {sid: gnss_inputs.write_trop_zip(
+        os.path.join(archive_dir, f'{sid}.{GNSS_DATES[0].year}.trop.zip'), sid,
+        GNSS_DATES[0].year, doys + [doys[-1] + 1], seed=SEED + i, n_gaps=GNSS_GAPS)
+        for i, sid in enumerate(ids)}
+    t_archives = time.perf_counter() - t0
+
+    def local_copy(url, save_path, chunk_size=2048):
+        src = os.path.join(archive_dir, os.path.basename(url))
+        if not os.path.exists(src):
+            return ''
+        shutil.copy(src, save_path)
+        return save_path
+
+    gnss_dir = os.path.join(root, 'gnss')
+    own = gnss.download_url
+    gnss.download_url = local_copy
+    try:
+        t0 = time.perf_counter()
+        cli(['++process', 'downloadGNSS', '--station_file', stations, '--bbox',
+             ' '.join(str(v) for v in WX_BOX), '--date', *(f'{d:%Y%m%d}' for d in GNSS_DATES),
+             '--returntime', '12:00:00', '--download', '--out', gnss_dir], device=DEVICE)
+        t_download = time.perf_counter() - t0
+    finally:
+        gnss.download_url = own
+    gnss_file = os.path.join(gnss_dir, 'UNRcombinedGPS_ztd.csv')
+    obs = table.read_csv(gnss_file)
+    pairs = list(zip(obs['ID'], obs['Date']))
+    check(len(pairs) == len(set(pairs)) == N_GNSS * len(GNSS_DATES),
+          f'11b: {len(pairs)} GNSS rows ({len(set(pairs))} distinct (ID, Date)) for '
+          f'{N_GNSS} stations x {len(GNSS_DATES)} dates')
+    ztd_equal = True
+    for sid, day, ztd in zip(obs['ID'], obs['Date'], obs['ZTD']):
+        doy = dt.date.fromisoformat(day).timetuple().tm_yday
+        times, trotot, _, _ = written[sid][doy]
+        k = int(np.argmin(np.abs(times - 43200)))
+        ztd_equal &= bool(ztd == trotot[k] * 0.001)
+    check(ztd_equal, "11b: a GNSS ZTD is not the archive's TROTOT/1000 at the nearest epoch "
+          'with data')
+
+    run_dir = os.path.join(root, 'raider')
+    cfg = write_config(os.path.join(root, '11b.yaml'), {
+        'date_group': {'date_start': int(f'{GNSS_DATES[0]:%Y%m%d}'),
+                       'date_end': int(f'{GNSS_DATES[-1]:%Y%m%d}')},
+        'time_group': {'time': '12:00:00', 'interpolate_time': 'none'},
+        'aoi_group': {'station_file': stations},
+        'runtime_group': {'verbose': False, 'output_directory': run_dir,
+                          'weather_model_directory': os.path.join(root, 'wm')}})
+    rec = run_case(torch, kernels, cfg, conus_raw)
+    check(len(rec['paths']) == len(GNSS_DATES) and all(p.endswith('_ztd.csv')
+                                                       for p in rec['paths']),
+          f'11b: calcDelays wrote {rec["paths"]}')
+    check(rec['launches']['ztd_totals'] >= rec['fresh_loads'] >= 1,
+          f'11b: B1 launched {rec["launches"]["ztd_totals"]} times for {rec["fresh_loads"]} '
+          'fresh loads')
+    check(rec['writes']['files'] and all(rec['writes']['equal']),
+          f'11b: a netCDF-3 file read back differs from what was written: {rec["writes"]["equal"]}')
+    # the delays as calcDelays wrote them, before the combination adds its column
+    raider = {}
+    for p in rec['paths']:
+        when = np.datetime64(dt.datetime.strptime(os.path.basename(p).split('_')[2],
+                                                  '%Y%m%dT%H%M%S'), 'ns')
+        t = table.read_csv(p)
+        raider.update({(sid, when): v for sid, v in zip(t['ID'], t['totalDelay'])})
+
+    combined = os.path.join(root, 'raider_combined.csv')
+    t0 = time.perf_counter()
+    gnss_combine.combineDelayFiles(combined, loc=run_dir)
+    merged = gnss_combine.main(combined, gnss_file)
+    t_combine = time.perf_counter() - t0
+    # a left merge: every model row, ZTD NaN where the station's epoch
+    # nearest 12:00 with data is another (a gap at 12:00)
+    keys = list(zip(merged['ID'], merged['Datetime']))
+    gnss_ztd = {(sid, np.datetime64(day, 'ns') + np.timedelta64(int(sec), 's')): z
+                for sid, day, sec, z in zip(obs['ID'], obs['Date'], obs['times'], obs['ZTD'])}
+    matched = {k for k in raider if k in gnss_ztd}
+    with_ztd = {k for k, z in zip(keys, merged['ZTD']) if not np.isnan(z)}
+    check(len(keys) == len(set(keys)) == len(raider) and with_ztd == matched and matched,
+          f'11b: {len(keys)} merged rows ({len(with_ztd)} with a ZTD) for {len(raider)} model '
+          f'rows, {len(matched)} matched (ID, Datetime)')
+    resid = np.array([gnss_ztd[k] - raider[k] if k in matched else np.nan for k in keys])
+    resid_equal = bool(np.array_equal(merged['ZTD_minus_RAiDER'], resid, equal_nan=True))
+    check(resid_equal, '11b: ZTD_minus_RAiDER is not ZTD - totalDelay of the two files')
+    out = dict(seconds={'write_archives': t_archives, 'downloadGNSS': t_download,
+                        'calcDelays': rec['seconds']['calcDelays'],
+                        'calcDelays_steps': rec['seconds'], 'combine_and_merge': t_combine},
+               launches=rec['launches'], fresh_loads=rec['fresh_loads'], peak_gb=rec['peak_gb'],
+               gnss_rows=len(pairs), ztd_equal_archive=ztd_equal, merged_rows=len(keys),
+               matched_rows=len(matched), residual_bit_for_bit=resid_equal,
+               mean_residual_m=float(np.nanmean(resid)))
+    return rec['launches'], out
+
+
+def phase_gacos(tmp):
+    """Phase 11c (the GACOS part): ``gacos.main`` on a seeded .ztd + .rsc;
+    the port's ENVI reader reads the grid back."""
+    from raider_tpu_torch.io import read_envi
+    from raider_tpu_torch.workflows import gacos
+
+    path = os.path.join(tempfile.mkdtemp(prefix='phase11c_', dir=tmp), '20210701.ztd')
+    rng = np.random.default_rng(SEED + 12)
+    grid = rng.uniform(2.2, 2.6, GACOS_SHAPE).astype('<f4')
+    grid.tofile(path)
+    with open(path + '.rsc', 'w') as f:
+        f.write(f'WIDTH {GACOS_SHAPE[1]}\nFILE_LENGTH {GACOS_SHAPE[0]}\nX_FIRST -100.0\n'
+                'Y_FIRST 39.0\nX_STEP 0.008333333\nY_STEP -0.008333333\n')
+    gacos.main([path])
+    data, prof = read_envi(path)
+    same = bool(data.shape == (1, *GACOS_SHAPE)
+                and np.array_equal(data[0], np.fromfile(path, '<f4').reshape(GACOS_SHAPE)))
+    check(same and os.path.exists(path + '.vrt'), '11c: the GACOS grid did not read back')
+    return {'shape': list(GACOS_SHAPE), 'reads_back_equal': same}
+
+
+def phase_gunw_gnss(torch, kernels, tmp, card_s):
+    """Phase 11: the GUNW compute path (11a), the GNSS tools (11b) and
+    GACOS (11c), inside phase 8's temp dir, on 8a's raw HRRR CONUS file.
+    Returns its summed launches and record."""
+    from raider_tpu_torch.geometry.orbit import Orbit
+    from raider_tpu_torch.scripts import point_inputs
+    from raider_tpu_torch.wx.base import make_raw_weather_data_filename
+
+    t_phase = time.perf_counter()
+    conus_raw = make_raw_weather_data_filename(tmp, 'HRRR', PT_TIME)
+    orbit_dir = tempfile.mkdtemp(prefix='phase11_orbits_', dir=tmp)
+    track = track_orbit(*WX_TRACK, step=EOF_STEP)
+    eofs = sorted(point_inputs.write_eof(orbit_dir, Orbit(times=track.times, pos=track.pos,
+                                                          vel=track.vel, ref_time=t))
+                  for t in (GUNW_REF, GUNW_SEC))
+    launches_a, gunw = phase_gunw(torch, kernels, tmp, card_s, conus_raw, eofs)
+    say(f'phase 11a [{card_s}] GUNW: ' + json.dumps(gunw))
+    launches_b, gnss = phase_gnss(torch, kernels, tmp, card_s, conus_raw)
+    say(f'phase 11b [{card_s}] GNSS: ' + json.dumps(gnss))
+    gacos = phase_gacos(tmp)
+    launches = {k: launches_a[k] + launches_b[k] for k in kernels.LAUNCHES}
+    check(launches['ztd_totals'] >= 1 and launches['brick_integrate'] >= 1,
+          f'phase 11: B1 or B2 not launched: {launches}')
+    record = dict(gunw_launches=launches_a, gnss_launches=launches_b, gacos=gacos,
+                  launches=launches, seconds=time.perf_counter() - t_phase,
+                  note="11a/11b: HRRR's download replaced by a cut of the CONUS raw file, "
+                       "s1_timing's look-ups by the local EOFs; 11b: the UNR archive download "
+                       'by a copy of a local synthetic archive')
+    say(json.dumps({'gunw_gnss': record}))
+    return launches, record
+
+
 def phase_weather_models(torch, kernels):
     """Phase 8: weather models from raw files (8a-8c) and the CRSs (8d),
     then phase 9 (point requests) and phase 10 (the workflow) in the same
@@ -2237,9 +2746,10 @@ def phase_weather_models(torch, kernels):
         # phase 9's inputs
         launches_pt, _ = phase_points(torch, kernels, tmp, card_s)
         launches_wf, _ = phase_workflow(torch, kernels, tmp, card_s)
+        launches_gg, _ = phase_gunw_gnss(torch, kernels, tmp, card_s)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    return launches, launches_pt, launches_wf
+    return launches, launches_pt, launches_wf, launches_gg
 
 
 def main() -> int:
@@ -2284,24 +2794,28 @@ def main() -> int:
     launches_k, prof = phase_profile(torch, kernels)
     launches_l, large = phase_large(torch, kernels)
     say(json.dumps({'large_cubes': large}))
-    launches_wx, launches_pt, launches_wf = phase_weather_models(torch, kernels)
+    launches_wx, launches_pt, launches_wf, launches_gg = phase_weather_models(torch, kernels)
 
     record = {'kernels': [
         {'name': 'ztd_totals', 'route': 'cuda', 'source': 'raider_tpu_torch/csrc/ztd_totals.cu',
          'replaces': 'raider_tpu/ops/pallas_ztd.py:31',
          'launches': (launches['ztd_totals'] + launches_wx['ztd_totals']
-                      + launches_pt['ztd_totals'] + launches_wf['ztd_totals']),
+                      + launches_pt['ztd_totals'] + launches_wf['ztd_totals']
+                      + launches_gg['ztd_totals']),
          'launches_phase_8': launches_wx['ztd_totals'],
          'launches_phase_9': launches_pt['ztd_totals'],
-         'launches_phase_10': launches_wf['ztd_totals'], **measured['ztd_totals']},
+         'launches_phase_10': launches_wf['ztd_totals'],
+         'launches_phase_11': launches_gg['ztd_totals'], **measured['ztd_totals']},
         {'name': 'brick_integrate', 'route': 'cuda',
          'source': 'raider_tpu_torch/csrc/brick_integrate.cu',
          'replaces': 'raider_tpu/delay/raytrace.py:704',
          'launches': (launches['brick_integrate'] + launches_wx['brick_integrate']
-                      + launches_pt['brick_integrate'] + launches_wf['brick_integrate']),
+                      + launches_pt['brick_integrate'] + launches_wf['brick_integrate']
+                      + launches_gg['brick_integrate']),
          'launches_phase_8': launches_wx['brick_integrate'],
          'launches_phase_9': launches_pt['brick_integrate'],
          'launches_phase_10': launches_wf['brick_integrate'],
+         'launches_phase_11': launches_gg['brick_integrate'],
          **measured['brick_integrate'], 'ptxas': ptxas.get('f32 3x3')},
         {'name': 'window_integrate', 'route': 'cuda',
          'source': 'raider_tpu_torch/csrc/window_integrate.cu',

@@ -1,9 +1,10 @@
 """Process dispatcher: ``python -m raider_tpu_torch.cli ++process <name> ...``.
 
 The counterpart of ``raider_tpu/cli/__main__.py``. ``calcDelays`` runs the
-calc-delays workflow (``workflows.calc_delays``) on the CUDA card unless
-the caller of :func:`main` names another device; ``downloadGNSS`` and
-``calcDelaysGUNW`` are not ported yet.
+calc-delays workflow (``workflows.calc_delays``) and ``calcDelaysGUNW`` the
+GUNW workflow (``workflows.gunw``) on the CUDA card unless the caller of
+:func:`main` names another device; ``downloadGNSS`` (``workflows.gnss``)
+downloads and parses GNSS delays on the host.
 """
 
 import argparse
@@ -13,7 +14,8 @@ from typing import Optional, Sequence
 
 def main(argv: Optional[Sequence[str]] = None, *, device='cuda'):
     """Parse ``argv`` (the command line when None) and run the process it
-    names; returns what the process returns (calcDelays: its output paths)."""
+    names; returns what the process returns (calcDelays: its output paths;
+    calcDelaysGUNW: its two cube paths)."""
     parser = argparse.ArgumentParser(
         prefix_chars='+',
         formatter_class=argparse.ArgumentDefaultsHelpFormatter,
@@ -33,14 +35,19 @@ def main(argv: Optional[Sequence[str]] = None, *, device='cuda'):
 
         set_logger_path(args.logger_path)
 
-    if args.process != 'calcDelays':
-        raise NotImplementedError(f'{args.process} is not ported to raider_tpu_torch yet '
-                                  '(ROADMAP.md, item A8: the next workflow slice)')
-    from raider_tpu_torch.workflows.calc_delays import calcDelays
-
     if argv is None:
         sys.argv = [sys.argv[0]] + unknowns
-    return calcDelays(unknowns, device=device)
+    if args.process == 'calcDelays':
+        from raider_tpu_torch.workflows.calc_delays import calcDelays
+
+        return calcDelays(unknowns, device=device)
+    if args.process == 'downloadGNSS':
+        from raider_tpu_torch.workflows.gnss import downloadGNSS
+
+        return downloadGNSS(unknowns)
+    from raider_tpu_torch.workflows.gunw import calcDelaysGUNW
+
+    return calcDelaysGUNW(unknowns, device=device)
 
 
 if __name__ == '__main__':

@@ -21,6 +21,9 @@ files, radar and geocoded rasters: the cube, sampled at the points by an
     B2 (f32 bricks), K4 (int16 bricks, the capacity band) or the plain-torch
     pack16 / pack16_i16 / pack4 integrate for larger cubes.
 
+The steps are timed by ``utils.profiling.stage`` under the JAX package's
+stage names (that module's docstring says how they nest).
+
 The JAX package's device-geometry session (cube-global static plan and
 deferred redo) is ROADMAP A2; its int16 result stream, fetch batching and
 sharding are not ported (ROADMAP "Not to port" says why).
@@ -45,6 +48,7 @@ from raider_tpu_torch.io import Dataset, Variable, read_nc
 from raider_tpu_torch.logger import logger
 from raider_tpu_torch.ops import grid_weights, interp3d_points, interp3d_separable
 from raider_tpu_torch.utils import require_device
+from raider_tpu_torch.utils.profiling import stage
 
 
 def torch_dtype(dtype) -> torch.dtype:
@@ -181,12 +185,14 @@ def _get_delays_on_cube(datetime, wm: WeatherCube, weather_model_file, aoi, heig
 
     if los.is_Zenith() or los.is_Projected():
         out_type = 'zenith' if los.is_Zenith() else 'slant - projected'
-        wet, hydro = _build_cube(wm, aoi.xpts, aoi.ypts, zpts, crs,
-                                 ('wet_total', 'hydro_total'), compute_dtype)
+        with stage('delay.ztd_cube'):
+            wet, hydro = _build_cube(wm, aoi.xpts, aoi.ypts, zpts, crs,
+                                     ('wet_total', 'hydro_total'), compute_dtype)
     else:
         out_type = 'slant - raytracing'
-        wet, hydro = _build_cube_ray(wm, aoi.xpts, aoi.ypts, zpts, los, crs, zref=zref,
-                                     compute_dtype=compute_dtype)
+        with stage('delay.raytrace_cube'):
+            wet, hydro = _build_cube_ray(wm, aoi.xpts, aoi.ypts, zpts, los, crs, zref=zref,
+                                         compute_dtype=compute_dtype)
     if np.isnan(wet).any() or np.isnan(hydro).any():
         logger.critical('There are missing delay values. Check your inputs.')
     return writeResultsToDataset(datetime, aoi.xpts, aoi.ypts, zpts, crs, wet, hydro,
@@ -237,8 +243,10 @@ def _slice_geometry(wm: WeatherCube, lat, lon, ht: float, los, zref: float):
     """
     hts = torch.full_like(lat, float(ht))
     xyz = torch.stack(lla2ecef(lat, lon, hts), dim=-1)
-    look = los.getLookVectors(ht, [lon, lat, hts], xyz)
-    ray_lengths, low_xyzs, high_xyzs = build_ray(wm.zs, float(ht), xyz, look, zref)
+    with stage('raytrace.look_vectors', log=False):
+        look = los.getLookVectors(ht, [lon, lat, hts], xyz)
+    with stage('raytrace.build_ray', log=False):
+        ray_lengths, low_xyzs, high_xyzs = build_ray(wm.zs, float(ht), xyz, look, zref)
     if ray_lengths is None:
         return None
     if bool(torch.isnan(ray_lengths).all()):
@@ -286,18 +294,21 @@ def _build_cube_ray(wm: WeatherCube, xpts, ypts, zpts, los, pts_crs, zref,
     out = torch.zeros((2, zpts.size, yy.size), dtype=torch.float64, device=dev)
     for hh, ht in enumerate(zpts):
         logger.info(f'Processing slice {hh + 1} / {len(zpts)}: {ht}')
-        geom = _slice_geometry(wm, lat, lon, float(ht), los, zref)
+        with stage('raytrace.device_geometry', log=False):
+            geom = _slice_geometry(wm, lat, lon, float(ht), los, zref)
         if geom is None:
             # no model level contributes at this height: the delay stays 0
             continue
         rays = [geom[k].to(compute_dtype) for k in ('bnd_y', 'bnd_x', 'bnd_z', 'd2', 'ray_len')]
-        w, h = integrate_rays(cube_wet, cube_hydro, ys_k, xs_k, wm.zs, *rays, re_local,
-                              geom['per_level_max'], max_segment_length,
-                              packed2d=packed2d, mode=pack_mode,
-                              heights=geom['heights'], hstep_max=geom['hstep_max'])
+        with stage('raytrace.integrate', log=False):
+            w, h = integrate_rays(cube_wet, cube_hydro, ys_k, xs_k, wm.zs, *rays, re_local,
+                                  geom['per_level_max'], max_segment_length,
+                                  packed2d=packed2d, mode=pack_mode,
+                                  heights=geom['heights'], hstep_max=geom['hstep_max'])
         out[0, hh] = w
         out[1, hh] = h
-    out = out.reshape(2, zpts.size, ypts.size, xpts.size).cpu().numpy()
+    with stage('raytrace.final_fetch', log=False):
+        out = out.reshape(2, zpts.size, ypts.size, xpts.size).cpu().numpy()
     return out[0], out[1]
 
 

@@ -135,13 +135,16 @@ def write_hrrr(path, ak=False, nz=None, grid=None, seed=0, device='cuda'):
     return path
 
 
-def crop_hrrr(src, dst, ll_bounds, q_scale: float = 1.0) -> tuple:
+def crop_hrrr(src, dst, ll_bounds, q_scale: float = 1.0, p_scale: float = 1.0,
+              t_scale: float = 1.0) -> tuple:
     """Write to ``dst`` what HRRR's fetcher (``wx.hrrr.download_hrrr_file``)
     writes for ``ll_bounds`` (SNWE), cut from the whole-grid raw file
     ``src``: the rows and columns ``get_bounds_indices`` finds on its
     latitude/longitude grid, with the longitudes taken modulo 360 as the
-    fetcher does; the humidity ``q`` multiplied by ``q_scale`` (so that
-    cuts for several epochs differ). Returns the (y, x) shape written."""
+    fetcher does; the humidity ``q``, the pressure ``pres`` and the
+    temperature ``t`` multiplied by ``q_scale``, ``p_scale`` and
+    ``t_scale`` (so that cuts for several epochs differ). Returns the
+    (y, x) shape written."""
     from scipy.io import netcdf_file
 
     from raider_tpu_torch.wx.hrrr import get_bounds_indices
@@ -158,7 +161,8 @@ def crop_hrrr(src, dst, ll_bounds, q_scale: float = 1.0) -> tuple:
             for name, var in f.variables.items():
                 out = g.createVariable(name, var.typecode(), var.dimensions)
                 data = var.data[tuple(cut.get(d, slice(None)) for d in var.dimensions)]
-                out[...] = data * np.float32(q_scale) if name == 'q' and q_scale != 1.0 else data
+                scale = {'q': q_scale, 'pres': p_scale, 't': t_scale}.get(name, 1.0)
+                out[...] = data * np.float32(scale) if scale != 1.0 else data
                 for k, v in var._attributes.items():
                     setattr(out, k, v)
             del var, data   # the mapped file closes only when no array refers to it

@@ -9,7 +9,6 @@ package's ``read_csv(f).drop_duplicates(subset=['Lat', 'Lon'])
 
 import csv
 import datetime as dt
-import math
 from pathlib import Path
 from typing import Optional
 
@@ -18,6 +17,7 @@ import numpy as np
 from raider_tpu_torch.geometry.aoi import BoundingBox, StationFile, read_station_csv
 from raider_tpu_torch.geometry.los import LOS, Zenith
 from raider_tpu_torch.logger import logger
+from raider_tpu_torch.utils.table import NA_VALUES, column_kind, float_text
 from raider_tpu_torch.workflows.config import RunConfig
 
 _RASTER_EXTS = {
@@ -29,11 +29,6 @@ _RASTER_EXTS = {
     'HDF5': '.h5',
 }
 
-# the strings pandas' read_csv reads as NaN by default
-_NA_VALUES = frozenset({'', '#N/A', '#N/A N/A', '#NA', '-1.#IND', '-1.#QNAN', '-NaN', '-nan',
-                        '1.#IND', '1.#QNAN', '<NA>', 'N/A', 'NA', 'NULL', 'NaN', 'None', 'n/a',
-                        'nan', 'null'})
-
 
 def get_raster_ext(fmt: str) -> str:
     try:
@@ -42,40 +37,13 @@ def get_raster_ext(fmt: str) -> str:
         raise ValueError(f'{fmt} is not a valid raster file format')
 
 
-def _column_kind(values: list) -> str:
-    """pandas' type for a CSV column: 'int' when every field is an integer,
-    'float' when every field is a number or NaN (an int column with a blank
-    turns float), else 'str'."""
-    fields = [v.strip() for v in values]
-    numbers = [v for v in fields if v not in _NA_VALUES]
-    if any('_' in v for v in numbers):   # Python's int() and float() take '1_000'
-        return 'str'
-    for kind, cast in (('int', int), ('float', float)):
-        try:
-            for v in numbers:
-                cast(v)
-        except ValueError:
-            continue
-        if kind == 'int' and len(numbers) < len(fields):
-            return 'float'
-        return kind
-    return 'str'
-
-
-def _float_text(value, dtype=np.float64) -> str:
-    """A float as pandas' to_csv writes it: the shortest repr in its dtype,
-    NaN as an empty field."""
-    value = dtype(value)
-    return '' if math.isnan(value) else str(value)
-
-
 def _field(kind: str, text: str) -> str:
     if kind == 'str':
-        return '' if text in _NA_VALUES else text
+        return '' if text in NA_VALUES else text
     text = text.strip()
-    if text in _NA_VALUES:
+    if text in NA_VALUES:
         return ''
-    return str(int(text)) if kind == 'int' else _float_text(float(text))
+    return str(int(text)) if kind == 'int' else float_text(float(text))
 
 
 def write_station_table(station_file, out_path, extra: Optional[dict] = None) -> None:
@@ -92,7 +60,7 @@ def write_station_table(station_file, out_path, extra: Optional[dict] = None) ->
         rows = [r for r in csv.reader(f) if r]
     header, rows = rows[0], rows[1:]
     width = len(header)
-    kinds = [_column_kind([r[j] if j < len(r) else '' for r in rows]) for j in range(width)]
+    kinds = [column_kind([r[j] if j < len(r) else '' for r in rows]) for j in range(width)]
     _, kept, _, _ = read_station_csv(station_file)
     extra = {k: np.asarray(v) for k, v in (extra or {}).items()}
     with open(out_path, 'w', newline='') as f:
@@ -101,7 +69,7 @@ def write_station_table(station_file, out_path, extra: Optional[dict] = None) ->
         for i, r in enumerate(kept):
             r = r + [''] * (width - len(r))
             w.writerow([_field(k, v) for k, v in zip(kinds, r)]
-                       + [_float_text(a[i], a.dtype.type) for a in extra.values()])
+                       + [float_text(a[i], a.dtype.type) for a in extra.values()])
 
 
 def makeDelayFileNames(date: Optional[dt.date], los: Optional[LOS], outformat: str,

@@ -368,14 +368,23 @@ def test_no_h5py_error_names_the_option(tmp_path, inputs, monkeypatch, caplog):
     assert not [f for f in os.listdir(out / 'wm') if not _is_raw(f)]
 
 
-def test_cli_dispatch_and_default_device(tmp_path):
+def test_cli_dispatch_and_default_device(tmp_path, monkeypatch):
+    """``++process downloadGNSS`` and ``calcDelaysGUNW`` reach the port's
+    entry points with the remaining arguments (and the device)."""
     import inspect
 
-    with pytest.raises(NotImplementedError, match='A8'):
-        t_main(['++process', 'downloadGNSS'])
-    with pytest.raises(NotImplementedError, match='A8'):
-        t_main(['++process', 'calcDelaysGUNW'])
+    from raider_tpu_torch.workflows import gnss as t_gnss
+    from raider_tpu_torch.workflows import gunw as t_gunw
+
+    entry_gunw = t_gunw.calcDelaysGUNW
+    calls = []
+    monkeypatch.setattr(t_gnss, 'downloadGNSS', lambda argv: calls.append(('gnss', argv)))
+    monkeypatch.setattr(t_gunw, 'calcDelaysGUNW',
+                        lambda argv, device='cuda': calls.append(('gunw', argv, device)) or 'ok')
+    t_main(['++process', 'downloadGNSS', '--date', '20200130'])
+    assert t_main(['++process', 'calcDelaysGUNW', '--file', 'x.nc'], device='cpu') == 'ok'
+    assert calls == [('gnss', ['--date', '20200130']), ('gunw', ['--file', 'x.nc'], 'cpu')]
     for fn in (t_main, t_cd.calcDelays, t_cd.getWeatherFile, t_cd.combine_weather_files,
                t_cd.get_time_grid_for_aztime_interp, t_s1.get_azimuth_time_grid,
-               t_s1.get_s1_azimuth_time_grid):
+               t_s1.get_s1_azimuth_time_grid, entry_gunw, t_gunw.run_gunw):
         assert inspect.signature(fn).parameters['device'].default == 'cuda', fn

@@ -444,3 +444,11 @@ def test_crop_hrrr_writes_what_the_fetcher_keeps(tmp_path):
         np.testing.assert_array_equal(h.variables['q'][:], g.variables['q'][:] * np.float32(1.25))
         for name in ('t', 'pres', 'z', 'latitude'):
             np.testing.assert_array_equal(h.variables[name][:], g.variables[name][:])
+    # p_scale and t_scale scale the pressure and the temperature, and nothing else
+    assert raw_weather.crop_hrrr(src, scaled, bounds, p_scale=1.01, t_scale=0.99) == (ny, nx)
+    with netcdf_file(dst, 'r', mmap=False) as g, netcdf_file(scaled, 'r', mmap=False) as h:
+        for name, scale in (('pres', 1.01), ('t', 0.99)):
+            np.testing.assert_array_equal(h.variables[name][:],
+                                          g.variables[name][:] * np.float32(scale))
+        for name in ('q', 'z', 'latitude'):
+            np.testing.assert_array_equal(h.variables[name][:], g.variables[name][:])

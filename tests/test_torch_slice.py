@@ -211,6 +211,8 @@ _NO_JAX_SCRIPT = textwrap.dedent('''
     sys.modules['raider_tpu'] = None   # nor the JAX package
     sys.modules['yaml'] = None         # the run config is read without PyYAML
     sys.modules['matplotlib'] = None   # plots import matplotlib when they plot
+    sys.modules['boto3'] = None        # the S3 helpers import boto3 when they connect
+    sys.modules['requests'] = None     # the GNSS tools import requests when they download
     import datetime as dt
     import os
     import tempfile
@@ -334,8 +336,20 @@ _NO_JAX_SCRIPT = textwrap.dedent('''
         cube = read_nc(out[0])
         assert np.isfinite(cube['hydro'].data).all() and cube['hydro'].data.shape[0] == 2
         assert cube.attrs['model_times_used'] == ['20200130T13:52:45']
-    assert not any(m in ('jax', 'pandas', 'h5py', 'yaml', 'matplotlib')
-                   or m.startswith(('jax.', 'raider_tpu.', 'yaml.', 'matplotlib.'))
+    # the GUNW compute path, the GNSS tools, GACOS and the stage timers
+    from raider_tpu_torch.utils import profiling, table
+    from raider_tpu_torch.workflows import aws, gacos, gnss, gnss_combine, gunw
+    from raider_tpu_torch.scripts import gnss_inputs
+    with tempfile.TemporaryDirectory() as tmp:
+        z = os.path.join(tmp, 'S00000.2020.trop.zip')
+        gnss_inputs.write_trop_zip(z, 'S00000', 2020, (30,), n_gaps=2)
+        gnss.get_delays_UNR(z, os.path.join(tmp, 'S00000_ztd.csv'), ['2020-01-30'], 43200)
+        got = table.read_csv(os.path.join(tmp, 'S00000_ztd.csv'))
+        assert list(got['times']) == [43200] and np.isfinite(got['ZTD']).all()
+    assert 'delay.raytrace_cube' in profiling.stage_report()
+    assert not any(m in ('jax', 'pandas', 'h5py', 'yaml', 'matplotlib', 'boto3', 'requests')
+                   or m.startswith(('jax.', 'raider_tpu.', 'yaml.', 'matplotlib.', 'boto3.',
+                                    'requests.'))
                    for m in sys.modules if sys.modules[m] is not None)
     print('NO_JAX_OK')
 ''')
@@ -377,10 +391,11 @@ def test_default_device_without_cuda_raises(wm_dataset):
 
 def test_no_module_imports_pandas_or_h5py_at_module_level():
     """pandas and h5py, absent from the card's machine, are imported inside
-    functions only."""
+    functions only; so are boto3 and requests (the S3 and download
+    helpers)."""
     import re
 
-    pat = re.compile(r'^(import|from) (pandas|h5py)\b')
+    pat = re.compile(r'^(import|from) (pandas|h5py|boto3|requests)\b')
     for dirpath, _, files in os.walk(os.path.join(REPO, 'raider_tpu_torch')):
         for f in files:
             if f.endswith('.py'):
