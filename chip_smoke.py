@@ -127,8 +127,35 @@ Phases, each printing one line; any failure exits non-zero:
      back by the ENVI reader; and, in phase 3, the stage timers' report
      after its two requests (every JAX stage name present, the stages'
      sums within the requests' wall times).
+ 12. raiderStats and several shards, in phase 8's temp dir: (a) a seeded
+     combined GNSS/model CSV in raiderCombine's layout (2,000 stations over
+     CONUS, a 12:00 UTC epoch a day for 760 days, 5% of station-days
+     missing, 50 stations under two years; ZTD of annual and semiannual
+     harmonics, a trend and noise) read by ``utils.table.read_csv`` and
+     analysed by ``workflows.stats.stats_analyses`` through its argv
+     (-plotall, the absolute grids, the absolute phase grid, rasters, the
+     per-day variograms, 1 deg cells), then once more with the row filters
+     (-b, -ti, a wrapping -si, -oe, -variogram_errlimit, -u mm); each
+     twice on the card and once on the CPU. Where matplotlib is missing
+     only the drawing is replaced by a counter. Gates: every non-figure
+     product reads back; two card runs equal bit for bit (numbers and
+     files); the card against the CPU (grids and variogram gamma rtol
+     1e-12 with the same NaN cells, counts and medians equal, seasonal
+     coefficients 1e-9, sill and range 1e-6); the span filter drops
+     exactly the 50 short stations and every kept station's annual
+     amplitude is within 3 mm and its phase within 0.2 rad of the seeded
+     ones. (b) raiderStats on 11b's merged product (-sp 0.5, grids,
+     rasters), card against CPU; its seasonal table is empty (two days of
+     record). (c) phase 3's zenith and raytraced requests with ``mesh``
+     = 4 shards of the one card: bit for bit phase 3's cubes, B2 3 x 4
+     times. (d) phase 7's bigcube (pack16_i16, pack4) integrated in 4
+     z-slabs against the whole table (rtol 2e-6, the same NaN), each
+     slab's bytes; the midcube's brick_i16 slice ray-sharded by
+     ``shard_rays`` (K4 once a shard, bit for bit); 8b's raytraced request
+     with ``zshard=True`` over 4 shards against the same request with the
+     whole table (rtol 2e-6).
 
-Phases 3 to 11 each start with the launch counts at 0 and read them when
+Phases 3 to 12 each start with the launch counts at 0 and read them when
 their path ends; the comparisons after that do not count. The line before
 the last is a JSON record of the kernels (with each kernel's bound: the
 least time the card could take for the same work, from the bytes each
@@ -235,6 +262,21 @@ N_GNSS = 500                     # 11b: stations in phase 8b's Kansas box
 GNSS_DATES = (PT_TIME.date() - dt.timedelta(days=1), PT_TIME.date())
 GNSS_GAPS = 4                    # epochs missing a day in each archive
 GACOS_SHAPE = (240, 300)         # 11c: a GACOS .ztd grid (rows, columns)
+STATS_STATIONS = 2000            # 12a: GNSS stations over CONUS
+STATS_DAYS = 760                 # one epoch a day at 12:00 UTC from 2019-01-01
+STATS_SHORT = 50                 # stations with less than two years of record
+STATS_BOX = (25.0, 49.0, -124.0, -67.0)
+STATS_FLAGS = ['-plotall', '-grid_delay_absolute_mean', '-grid_delay_absolute_median',
+               '-grid_delay_absolute_stdev', '-grid_seasonal_absolute_phase', '-grid_to_raster',
+               '-variogram_per_timeslice', '-sp', '1']
+STATS_FILTER_FLAGS = [*STATS_FLAGS, '-b', '30 45 -110 -80', '-ti', '2019-03-01 2020-12-31',
+                      '-si', '11 2', '-oe', '0.015', '-variogram_errlimit', '0.01', '-u', 'mm',
+                      '-min_span', '1', '0.2']
+STATS_RTOL = 1e-12               # card vs CPU: grids, variogram gamma
+STATS_RTOL_FIT = 1e-9            # card vs CPU: seasonal coefficients
+STATS_RTOL_SILL = 1e-6           # card vs CPU: variogram sill and range
+SHARDS = 4                       # 12c/12d: logical shards on the one card
+ZSHARD_RTOL = 2e-6               # z-slab tables vs the whole table (the JAX test's bound)
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM published peaks (NVIDIA data sheet)
 F32_FLOP_PER_S = 67e12
 
@@ -676,7 +718,8 @@ def phase_main_path(torch, kernels, b2_incoherent_ms):
     say(f'B2 on the 0 m slice of the main path ({lat.numel()} coherent pixel rays, '
         f'{plan.anchor.size} groups, launch {brick_shape(kernels, plan, table, lat.numel())}): '
         f'kernel {main_ms:.3f} ms; phase 2 ({N_RAYS} incoherent rays) {b2_incoherent_ms:.3f} ms')
-    return launches, main_ms, ztd
+    ctx = dict(when=when, ds_wm=ds_wm, orbit=orbit, zenith=ds_z, raytraced=ds_r, stages=stages)
+    return launches, main_ms, ztd, ctx
 
 
 def phase_window(torch, kernels):
@@ -2660,12 +2703,14 @@ def phase_gnss(torch, kernels, tmp, card_s, conus_raw):
     resid = np.array([gnss_ztd[k] - raider[k] if k in matched else np.nan for k in keys])
     resid_equal = bool(np.array_equal(merged['ZTD_minus_RAiDER'], resid, equal_nan=True))
     check(resid_equal, '11b: ZTD_minus_RAiDER is not ZTD - totalDelay of the two files')
+    merged_csv = os.path.join(root, 'UNRcombined_raider.csv')     # raiderStats' input (12b)
+    table.to_csv(merged, merged_csv)
     out = dict(seconds={'write_archives': t_archives, 'downloadGNSS': t_download,
                         'calcDelays': rec['seconds']['calcDelays'],
                         'calcDelays_steps': rec['seconds'], 'combine_and_merge': t_combine},
                launches=rec['launches'], fresh_loads=rec['fresh_loads'], peak_gb=rec['peak_gb'],
                gnss_rows=len(pairs), ztd_equal_archive=ztd_equal, merged_rows=len(keys),
-               matched_rows=len(matched), residual_bit_for_bit=resid_equal,
+               matched_rows=len(matched), residual_bit_for_bit=resid_equal, merged_csv=merged_csv,
                mean_residual_m=float(np.nanmean(resid)))
     return rec['launches'], out
 
@@ -2715,6 +2760,7 @@ def phase_gunw_gnss(torch, kernels, tmp, card_s):
     check(launches['ztd_totals'] >= 1 and launches['brick_integrate'] >= 1,
           f'phase 11: B1 or B2 not launched: {launches}')
     record = dict(gunw_launches=launches_a, gnss_launches=launches_b, gacos=gacos,
+                  merged_csv=gnss['merged_csv'],
                   launches=launches, seconds=time.perf_counter() - t_phase,
                   note="11a/11b: HRRR's download replaced by a cut of the CONUS raw file, "
                        "s1_timing's look-ups by the local EOFs; 11b: the UNR archive download "
@@ -2723,11 +2769,453 @@ def phase_gunw_gnss(torch, kernels, tmp, card_s):
     return launches, record
 
 
-def phase_weather_models(torch, kernels):
+# ------------------------------------------------------------------ phase 12
+
+@contextlib.contextmanager
+def figures_where_possible():
+    """raiderStats' figures (``workflows.stats.draw_figure``) need
+    matplotlib; where it cannot be imported only the drawing is replaced by
+    a counter of what each flag would have drawn. Yields the (kind, file)
+    list of the replaced figures (None when they were drawn)."""
+    import importlib.util
+
+    from raider_tpu_torch.workflows import stats
+
+    if importlib.util.find_spec('matplotlib') is not None:
+        os.environ.setdefault('MPLBACKEND', 'Agg')
+        yield None
+        return
+    drawn, own = [], stats.draw_figure
+
+    def count(st, kind, fname, **data):
+        drawn.append((kind, fname))
+        return os.path.join(st.workdir, fname)
+    stats.draw_figure = count
+    try:
+        yield drawn
+    finally:
+        stats.draw_figure = own
+
+
+def _h(x):
+    return x.detach().cpu().numpy() if hasattr(x, 'detach') else np.asarray(x)
+
+
+def stats_products(rec) -> dict:
+    """The numbers of a ``stats_analyses`` record, host numpy, by name."""
+    out = {f'grid {k}': _h(v) for k, v in rec['grids'].items()}
+    if rec['seasonal'] is not None:
+        out.update({f'seasonal {k}': _h(v) for k, v in rec['seasonal'].items() if k != 'ID'})
+    if rec['variogram'] is not None:
+        vg = rec['variogram']
+        out.update({f'variogram {k}': _h(vg[k]) for k in ('centers', 'gamma', 'counts')})
+        out['variogram sill'] = np.array([vg['sill'], vg['range']])
+    if rec['gridded_variogram'] is not None:
+        out['gridded sill'], out['gridded range'] = rec['gridded_variogram']
+    if rec['timeslices'] is not None:
+        out['timeslice dates'] = np.array([r[0].toordinal() for r in rec['timeslices']])
+        for k, name in ((2, 'gamma'), (3, 'counts')):
+            out[f'timeslice {name}'] = np.array([r[k] for r in rec['timeslices']])
+        out['timeslice sill'] = np.array([r[4:6] for r in rec['timeslices']])
+    return out
+
+
+def stats_rtol(name: str) -> float:
+    """Phase 12's tolerance of a product, card against CPU (0: equal)."""
+    if ('count' in name or 'heatmap' in name or name in ('grid grid_absolute_median',
+                                                         'timeslice dates')):
+        return 0.0
+    if 'sill' in name or 'range' in name:
+        return STATS_RTOL_SILL
+    if 'seasonal' in name:
+        return STATS_RTOL_FIT
+    return STATS_RTOL
+
+
+def stats_compare(card, cpu) -> dict:
+    """Each product's largest relative difference, card against CPU, and
+    the ones outside their tolerance (or with other NaN cells)."""
+    diffs, bad = {}, []
+    check(sorted(card) == sorted(cpu), f'12: the card and the CPU made other products: '
+          f'{sorted(set(card) ^ set(cpu))}')
+    for name in card:
+        a, b = np.asarray(card[name], dtype=np.float64), np.asarray(cpu[name], dtype=np.float64)
+        same_nan = a.shape == b.shape and np.array_equal(np.isnan(a), np.isnan(b))
+        ok = same_nan & np.isfinite(b)
+        rel = float(np.max(np.abs(a[ok] - b[ok]) / np.maximum(np.abs(b[ok]), 1e-300))) \
+            if same_nan and ok.any() else 0.0
+        diffs[name] = rel
+        if not same_nan or rel > stats_rtol(name):
+            bad.append(name)
+    return dict(max_rel=diffs, outside=bad)
+
+
+def stats_run(torch, kernels, argv, device):
+    """One ``stats_analyses`` run: its record, products and peak memory."""
+    from raider_tpu_torch.workflows import stats
+
+    if device != 'cpu':
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rec = stats.stats_analyses(argv, device=device)
+    if device != 'cpu':
+        torch.cuda.synchronize()
+    rec['seconds']['total'] = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9 if device != 'cpu' else 0.0
+    return rec, stats_products(rec), peak
+
+
+def files_read_back(rec) -> dict:
+    """Every non-figure product of a run, read back: {file: ok}."""
+    from raider_tpu_torch.io.geotiff import read_gtiff
+    from raider_tpu_torch.utils import table
+
+    out = {}
+    for path in rec['files']:
+        name = os.path.basename(path)
+        if name.endswith('.tif'):
+            arr, prof = read_gtiff(path)
+            want = np.flipud(_h(rec['grids'][name[:-4]])).astype(np.float32)
+            out[name] = bool(prof['transform'].to_gdal()[5] < 0
+                             and np.array_equal(arr[0], want, equal_nan=True))
+        elif name.endswith('.npy'):
+            sill, rng_ = rec['gridded_variogram']
+            out[name] = bool(np.array_equal(np.load(path), sill if 'sill' in name else rng_,
+                                            equal_nan=True))
+        elif name.endswith('.csv'):
+            got = table.read_csv(path)
+            want = {k: _h(v) for k, v in rec['seasonal'].items()}
+            out[name] = bool(list(got) == list(want) and all(
+                np.array_equal(np.asarray(got[k]), np.asarray(want[k]))
+                if got[k].dtype.kind in 'iO' else
+                np.array_equal(got[k], want[k], equal_nan=True) for k in want))
+    return out
+
+
+def same_files(dir_a, dir_b, names) -> bool:
+    """The non-figure files of two runs hold the same bytes."""
+    for name in names:
+        with open(os.path.join(dir_a, name), 'rb') as fa, open(os.path.join(dir_b, name),
+                                                                  'rb') as fb:
+            if fa.read() != fb.read():
+                return False
+    return True
+
+
+def seasonal_truth(rec, truth) -> dict:
+    """The seasonal table against the seeded harmonics: the stations the span
+    filter kept and the largest annual amplitude and phase errors."""
+    fits = {k: _h(v) for k, v in rec['seasonal'].items()}
+    kept = set(fits['ID'].tolist())
+    short = set(truth['ID'][truth['short']].tolist())
+    idx = np.searchsorted(truth['ID'], fits['ID'])
+    amp_err = np.abs(fits['annual_amplitude'] - truth['annual_amplitude'][idx])
+    dphi = np.angle(np.exp(1j * (fits['annual_phase'] - truth['annual_phase'][idx])))
+    return dict(stations=len(kept), dropped=len(truth['ID']) - len(kept),
+                dropped_exactly_the_short=kept == set(truth['ID'].tolist()) - short,
+                max_amplitude_err_m=float(np.max(amp_err)),
+                max_phase_err_rad=float(np.max(np.abs(dphi))))
+
+
+def phase_stats(torch, kernels, tmp, card_s):
+    """Phase 12a: raiderStats on a continental network's combined CSV."""
+    from raider_tpu_torch.scripts import stats_inputs
+
+    root = tempfile.mkdtemp(prefix='phase12a_', dir=tmp)
+    csv = os.path.join(root, 'combined.csv')
+    t0 = time.perf_counter()
+    truth = stats_inputs.write_combined_csv(csv, n_stations=STATS_STATIONS, n_days=STATS_DAYS,
+                                            n_short=STATS_SHORT, box=STATS_BOX, seed=SEED)
+    t_write = time.perf_counter() - t0
+    say(f'phase 12a [{card_s}] wrote {truth["rows"]:,} rows of {STATS_STATIONS} stations x '
+        f'{STATS_DAYS} days ({os.path.getsize(csv) / 1e6:.1f} MB) in {t_write:.2f} s')
+    out = {}
+    with figures_where_possible() as drawn:
+        for label, extra in (('12a', STATS_FLAGS), ('12a filtered', STATS_FILTER_FLAGS)):
+            argv = ['-f', csv, *extra]
+            kernels.reset_launch_counts()
+            runs = {}
+            for name, dev in (('card', DEVICE), ('card again', DEVICE), ('cpu', 'cpu')):
+                wd = os.path.join(root, f'{label}_{name}'.replace(' ', '_'))
+                n_drawn = len(drawn) if drawn is not None else 0
+                rec, prod, peak = stats_run(torch, kernels, [*argv, '-w', wd], dev)
+                runs[name] = (rec, prod, peak, wd, drawn[n_drawn:] if drawn is not None
+                              else [('drawn', f) for f in rec['figures']])
+                if name == 'card':
+                    launches = dict(kernels.LAUNCHES)
+                    sec = {k: round(v, 4) for k, v in rec['seconds'].items()}
+                    say(f'phase 12 {label} [{card_s}] seconds (card; synchronized after each '
+                        f'step): {json.dumps(sec)}; peak device memory {peak:.3f} GB; '
+                        f'{len(rec["stats"]):,} rows, grid {len(rec["stats"].lat_edges) - 1} x '
+                        f'{len(rec["stats"].lon_edges) - 1}')
+            rec, prod, peak, wd, figs = runs['card']
+            read_back = files_read_back(rec)
+            check(read_back and all(read_back.values()), f'12 {label}: a product did not read '
+                  f'back: {read_back}')
+            again = runs['card again']
+            bits = (all(np.array_equal(prod[k], again[1][k], equal_nan=True) for k in prod)
+                    and same_files(wd, again[3], [os.path.basename(p) for p in rec['files']]))
+            check(bits, f'12 {label}: two card runs differ')
+            cmp = stats_compare(prod, runs['cpu'][1])
+            check(not cmp['outside'], f'12 {label}: card vs CPU outside the tolerances: '
+                  f'{ {k: cmp["max_rel"][k] for k in cmp["outside"]} }')
+            cpu_sec = round(runs['cpu'][0]['seconds']['total'], 3)
+            res = dict(rows=len(rec['stats']), files=sorted(read_back), figures=len(figs),
+                       figure_kinds=sorted({f[0] for f in figs}),
+                       seconds=rec['seconds'], cpu_seconds=cpu_sec,
+                       again_seconds=again[0]['seconds']['total'], peak_gb=peak,
+                       card_vs_cpu_max_rel=max(cmp['max_rel'].values()),
+                       two_card_runs_same_bits=bits, launches=launches)
+            if label == '12a':
+                res['truth'] = seasonal_truth(rec, truth)
+                tr = res['truth']
+                check(tr['dropped'] == STATS_SHORT and tr['dropped_exactly_the_short'],
+                      f'12a: the span filter dropped {tr["dropped"]} stations, not the '
+                      f'{STATS_SHORT} short ones')
+                check(tr['max_amplitude_err_m'] <= 3e-3 and tr['max_phase_err_rad'] <= 0.2,
+                      f'12a: seasonal fits off the seeded harmonics: {tr}')
+            say(f'phase 12 {label} [{card_s}] gates: {len(read_back)} files read back, two card '
+                f'runs equal bit for bit, card vs CPU within the tolerances (largest relative '
+                f'difference {res["card_vs_cpu_max_rel"]:.3e}; CPU run {cpu_sec} s); '
+                f'figures {"drawn" if drawn is None else "replaced by a counter (no matplotlib)"}: '
+                f'{len(figs)} ({", ".join(sorted({os.path.basename(f[1]) for f in figs}))})'
+                + (f'; truth {json.dumps(res["truth"])}' if 'truth' in res else ''))
+            out[label] = res
+            del runs, rec, prod, again
+    return out
+
+
+def phase_stats_gnss(torch, kernels, tmp, card_s, merged_csv):
+    """Phase 12b: raiderStats on 11b's merged GNSS/model product."""
+    root = tempfile.mkdtemp(prefix='phase12b_', dir=tmp)
+    with figures_where_possible():
+        argv = ['-f', merged_csv, '-sp', '0.5', '-grid_heatmap', '-grid_delay_mean',
+                '-grid_delay_absolute_mean', '-grid_delay_absolute_median',
+                '-grid_delay_absolute_stdev', '-grid_seasonal_amplitude', '-grid_to_raster']
+        runs = {name: stats_run(torch, kernels, [*argv, '-w', os.path.join(root, name)], dev)
+                for name, dev in (('card', DEVICE), ('cpu', 'cpu'))}
+        cmp = stats_compare(runs['card'][1], runs['cpu'][1])
+        check(not cmp['outside'], f'12b: card vs CPU outside the tolerances: '
+              f'{ {k: cmp["max_rel"][k] for k in cmp["outside"]} }')
+        rec = runs['card'][0]
+        n_seasonal = len(rec['seasonal']['ID'])
+        read_back = files_read_back(rec)
+        check(all(read_back.values()), f'12b: a product did not read back: {read_back}')
+        out = dict(rows=len(rec['stats']), stations=int(rec['stats'].ids.size),
+                   seasonal_stations=n_seasonal, seconds=rec['seconds'],
+                   card_vs_cpu_max_rel=max(cmp['max_rel'].values()), files=sorted(read_back))
+        say(f'phase 12b [{card_s}] raiderStats on 11b\'s merged product '
+            f'({out["rows"]} rows, {out["stations"]} stations, -sp 0.5): '
+            f'seconds {json.dumps({k: round(v, 4) for k, v in rec["seconds"].items()})}; '
+            f'card vs CPU largest relative difference {out["card_vs_cpu_max_rel"]:.3e}; '
+            f'{len(read_back)} files read back; the seasonal table holds {n_seasonal} stations '
+            '(two days of record: the span filter drops every station, as in JAX)')
+        check(n_seasonal == 0, f'12b: {n_seasonal} stations passed the span filter')
+    return out
+
+
+def phase_shard_headline(torch, kernels, card_s, ctx):
+    """Phase 12c: phase 3's zenith and raytraced requests on a mesh of 4
+    shards of the one card, against phase 3's cubes bit for bit."""
+    from raider_tpu_torch.delay import engine
+    from raider_tpu_torch.geometry import BoundingBox, Raytracing, Zenith
+    from raider_tpu_torch.parallel import get_mesh
+
+    mesh = get_mesh(devices=(torch.device(DEVICE),) * SHARDS)
+    sec, cubes = {}, {}
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    for name, los in (('zenith', Zenith()), ('raytraced', Raytracing(orbit=ctx['orbit'],
+                                                                      time=ctx['when']))):
+        t0 = time.perf_counter()
+        cubes[name], _ = engine.tropo_delay(ctx['when'], ctx['ds_wm'],
+                                            BoundingBox(BBOX, cube_spacing_in_m=SPACING_M), los,
+                                            height_levels=HEIGHTS, device=DEVICE, mesh=mesh)
+        torch.cuda.synchronize()
+        sec[name] = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    same = {name: all(np.array_equal(np.asarray(cubes[name][k].data),
+                                     np.asarray(ctx[name][k].data), equal_nan=True)
+                      for k in ('wet', 'hydro')) for name in cubes}
+    say(f'phase 12c [{card_s}] phase 3\'s requests on {SHARDS} shards of one card: seconds '
+        f'{json.dumps({k: round(v, 4) for k, v in sec.items()})} (phase 3, unsharded: zenith '
+        f'{ctx["stages"]["zenith_s"]:.4f}, raytraced {ctx["stages"]["raytrace_s"]:.4f}); '
+        f'bit for bit equal to phase 3 {same}; B2 launches {launches["brick_integrate"]} '
+        f'(expected {len(HEIGHTS)} slices x {SHARDS} shards)')
+    check(all(same.values()), f'12c: the sharded cubes differ from phase 3\'s: {same}')
+    check(launches['brick_integrate'] == len(HEIGHTS) * SHARDS,
+          f'12c: B2 launched {launches["brick_integrate"]} times, not {len(HEIGHTS) * SHARDS}')
+    return launches, dict(seconds=sec, phase3_seconds={'zenith': ctx['stages']['zenith_s'],
+                                                       'raytraced': ctx['stages']['raytrace_s']},
+                          bit_for_bit=same, launches=launches)
+
+
+def phase_zslabs(torch, kernels, card_s):
+    """Phase 12d, kernel level: the bigcube (HRRR CONUS size) in pack16_i16
+    and pack4 integrated in z-slabs of 4 shards against the whole table;
+    then the midcube's brick_i16 slice ray-sharded (K4 on every shard)."""
+    from raider_tpu_torch.delay.raytrace import integrate_rays, pack_cubes
+    from raider_tpu_torch.parallel import (get_mesh, integrate_rays_z_sharded,
+                                           pack_cube_slabs, shard_rays)
+    from raider_tpu_torch.scripts import cuda_ms
+
+    mesh = get_mesh(devices=(torch.device(DEVICE),) * SHARDS)
+    sc = large_scene(torch, BIG_GRID, (21.0, 53.0), (-134.0, -60.0), (25.0, 49.0),
+                     (-124.0, -70.0), True)
+    res = {}
+    for mode in ('pack16_i16', 'pack4'):
+        table = pack_cubes(sc['wet'], sc['hydro'], mode=mode)[0]
+        full = table[0] if mode == 'pack16_i16' else table
+
+        def whole(t=table, m=mode):
+            return integrate_rays(sc['wet'], sc['hydro'], sc['ys'], sc['xs'], sc['zs'],
+                                  *sc['rays'], sc['plm'], packed2d=t, mode=m)
+        slabs = pack_cube_slabs(sc['wet'], sc['hydro'], mode, SHARDS, mesh=mesh)
+
+        def sharded(s=slabs, m=mode):
+            return integrate_rays_z_sharded(sc['wet'], sc['hydro'], sc['ys'], sc['xs'],
+                                            sc['zs'], *sc['rays'], sc['plm'], mode=m, mesh=mesh,
+                                            packed=s)
+        (w1, h1), (w2, h2) = whole(), sharded()
+        same_nan = bool(torch.equal(torch.isnan(w1), torch.isnan(w2))
+                        and torch.equal(torch.isnan(h1), torch.isnan(h2)))
+        err = max(max_rel(torch, w2, w1), max_rel(torch, h2, h1))
+        slab_bytes = [t.numel() * t.element_size() for t in slabs[0]]
+        rec = dict(table_bytes=full.numel() * full.element_size(), slab_bytes=slab_bytes,
+                   z_lo=[int(v) for v in slabs[1]], z_hi=[int(v) for v in slabs[2]],
+                   max_rel=err, same_nan=same_nan,
+                   whole_ms=cuda_ms(whole, reps=3), zslab_ms=cuda_ms(sharded, reps=3),
+                   pack_whole_ms=cuda_ms(lambda m=mode: pack_cubes(sc['wet'], sc['hydro'],
+                                                                   mode=m), reps=3),
+                   pack_slabs_ms=cuda_ms(lambda m=mode: pack_cube_slabs(
+                       sc['wet'], sc['hydro'], m, SHARDS, mesh=mesh), reps=3))
+        res[mode] = rec
+        say(f'phase 12d [{card_s}] bigcube {BIG_GRID} {mode}, {LARGE_RAYS} rays, {SHARDS} '
+            f'z-slabs: slab bytes {slab_bytes} of {rec["table_bytes"]} (shares '
+            f'{[round(b / rec["table_bytes"], 4) for b in slab_bytes]}); integrate ms: whole '
+            f'{rec["whole_ms"]:.3f}, z-slabs {rec["zslab_ms"]:.3f}; pack ms: whole '
+            f'{rec["pack_whole_ms"]:.3f}, slabs {rec["pack_slabs_ms"]:.3f}; max rel '
+            f'{err:.3e} (bound {ZSHARD_RTOL:g}), same NaN {same_nan}')
+        check(same_nan and err <= ZSHARD_RTOL, f'12d {mode}: z-slabs vs the whole table: '
+              f'max rel {err}, same NaN {same_nan}')
+        del table, full, slabs, w1, h1, w2, h2
+        torch.cuda.empty_cache()
+    del sc
+    torch.cuda.empty_cache()
+
+    # the midcube's brick_i16 slice, rays split over the shards: K4 a shard
+    sc = large_scene(torch, MID_GRID, (28.0, 42.0), (-127.0, -113.0), (30.0, 40.0),
+                     (-125.0, -115.0), False)
+    table, mode = pack_cubes(sc['wet'], sc['hydro'], grouped=True)
+    check(mode == 'brick_i16', f'12d: the midcube packs as {mode}')
+
+    def fn(by, bx, bz, d2, rl, re):
+        return integrate_rays(sc['wet'], sc['hydro'], sc['ys'], sc['xs'], sc['zs'],
+                              by, bx, bz, d2, rl, re, sc['plm'], packed2d=table, mode=mode,
+                              heights=sc['zs'].copy(), hstep_max=sc['hstep'])
+    w1, h1 = fn(*sc['rays'])
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    w2, h2 = shard_rays(fn, mesh, ray_axis_argnums={0: 1, 1: 1, 2: 1, 3: 1, 4: 1, 5: 0})(
+        *sc['rays'])
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    same = all(np.array_equal(_h(a), _h(b), equal_nan=True) for a, b in ((w1, w2), (h1, h2)))
+    res['midcube_ray_sharded'] = dict(mode=mode, bit_for_bit=same, launches=launches)
+    say(f'phase 12d [{card_s}] midcube {MID_GRID} {mode} slice, {LARGE_RAYS} rays over {SHARDS} '
+        f'shards (shard_rays): bit for bit {same}; K4 launches '
+        f'{launches["brick_integrate_i16"]}')
+    check(same and launches['brick_integrate_i16'] == SHARDS,
+          f'12d: the ray-sharded midcube slice: bit for bit {same}, launches {launches}')
+    del sc, table, w1, h1, w2, h2
+    torch.cuda.empty_cache()
+    return launches, res
+
+
+def phase_zslab_engine(torch, kernels, tmp, card_s):
+    """Phase 12d, engine level: 8b's raytraced request on 8a's LCC cube
+    (57 x 1059 x 1799, pack16_i16) with the table in z-slabs over 4 shards
+    (``zshard=True``) against the same request unsharded."""
+    from raider_tpu_torch.delay import engine
+    from raider_tpu_torch.geometry import BoundingBox, Raytracing
+    from raider_tpu_torch.parallel import get_mesh
+    from raider_tpu_torch.wx.registry import get_wm_by_name
+
+    mesh = get_mesh(devices=(torch.device(DEVICE),) * SHARDS)
+    when = dt.datetime(2021, 7, 1, 12, 0, 0)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    model = get_wm_by_name('HRRR')[1]()
+    model.setTime(when)
+    model.set_wmLoc(tmp)
+    model.load(device=DEVICE)
+    ds_wm = model.to_dataset()
+    del model
+    los = Raytracing(orbit=track_orbit(*WX_TRACK), time=when)
+    sec, cubes = {}, {}
+    for name, kw in (('whole', {}), ('zslabs', dict(mesh=mesh, zshard=True))):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        cubes[name], _ = engine.tropo_delay(when, ds_wm,
+                                            BoundingBox(WX_BOX, cube_spacing_in_m=SPACING_M),
+                                            los, height_levels=WX_HEIGHTS, device=DEVICE, **kw)
+        torch.cuda.synchronize()
+        sec[name] = dict(seconds=time.perf_counter() - t0,
+                         peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    launches = dict(kernels.LAUNCHES)
+    err, same_nan = 0.0, True
+    for k in ('wet', 'hydro'):
+        a, b = np.asarray(cubes['zslabs'][k].data), np.asarray(cubes['whole'][k].data)
+        same_nan &= bool(np.array_equal(np.isnan(a), np.isnan(b)))
+        ok = np.isfinite(b) & (b != 0)
+        err = max(err, float(np.max(np.abs(a[ok] - b[ok]) / np.abs(b[ok]))))
+    say(f'phase 12d [{card_s}] 8b\'s raytraced request on the LCC cube '
+        f'{tuple(np.shape(ds_wm["wet"].data))} with the table in {SHARDS} z-slabs: '
+        f'{json.dumps(sec)}; max rel vs the whole table {err:.3e} (bound {ZSHARD_RTOL:g}), '
+        f'same NaN {same_nan}; launches {launches}')
+    check(same_nan and err <= ZSHARD_RTOL, f'12d engine: z-slabs vs whole: max rel {err}, '
+          f'same NaN {same_nan}')
+    check(launches['ztd_totals'] >= 1, f'12d engine: B1 not launched by the load: {launches}')
+    del ds_wm, cubes
+    torch.cuda.empty_cache()
+    return launches, dict(requests=sec, max_rel=err, same_nan=same_nan, launches=launches)
+
+
+def phase_stats_parallel(torch, kernels, tmp, card_s, main_ctx, merged_csv):
+    """Phase 12: raiderStats (12a, 12b), ray sharding (12c) and z-slab
+    tables (12d). Returns its summed launches and record."""
+    t_phase = time.perf_counter()
+    record, failed = {}, []
+    launches = dict.fromkeys(kernels.LAUNCHES, 0)
+    # every part runs, and a failed gate fails the phase once all have run
+    for name, part in (('12a', lambda: ({}, phase_stats(torch, kernels, tmp, card_s))),
+                       ('12b', lambda: ({}, phase_stats_gnss(torch, kernels, tmp, card_s,
+                                                             merged_csv))),
+                       ('12c', lambda: phase_shard_headline(torch, kernels, card_s, main_ctx)),
+                       ('12d', lambda: phase_zslabs(torch, kernels, card_s)),
+                       ('12d engine', lambda: phase_zslab_engine(torch, kernels, tmp, card_s))):
+        try:
+            got, record[name] = part()
+        except Exception as exc:          # noqa: BLE001 (reported, then raised below)
+            failed.append(f'{name}: {type(exc).__name__}: {exc}')
+            say(f'phase {name} FAILED: {type(exc).__name__}: {exc}')
+            continue
+        for k, v in got.items():
+            launches[k] += v
+    record.update(launches=launches, seconds=time.perf_counter() - t_phase)
+    say(json.dumps({'stats_parallel': record}, default=str))
+    check(not failed, f'phase 12: {failed}')
+    return launches, record
+
+
+def phase_weather_models(torch, kernels, main_ctx):
     """Phase 8: weather models from raw files (8a-8c) and the CRSs (8d),
-    then phase 9 (point requests) and phase 10 (the workflow) in the same
-    directory. Returns the summed launches of phase 8's paths, of phase
-    9's and of phase 10's."""
+    then phase 9 (point requests), phase 10 (the workflow), phase 11 (the
+    GUNW and GNSS tools) and phase 12 (raiderStats, sharding; ``main_ctx``
+    is phase 3's requests) in the same directory. Returns the summed
+    launches of phase 8's paths, and of phases 9, 10, 11 and 12."""
     import shutil
 
     from raider_tpu_torch.scripts import card
@@ -2746,10 +3234,12 @@ def phase_weather_models(torch, kernels):
         # phase 9's inputs
         launches_pt, _ = phase_points(torch, kernels, tmp, card_s)
         launches_wf, _ = phase_workflow(torch, kernels, tmp, card_s)
-        launches_gg, _ = phase_gunw_gnss(torch, kernels, tmp, card_s)
+        launches_gg, gg = phase_gunw_gnss(torch, kernels, tmp, card_s)
+        launches_12, _ = phase_stats_parallel(torch, kernels, tmp, card_s, main_ctx,
+                                              gg['merged_csv'])
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    return launches, launches_pt, launches_wf, launches_gg
+    return launches, launches_pt, launches_wf, launches_gg, launches_12
 
 
 def main() -> int:
@@ -2785,7 +3275,8 @@ def main() -> int:
     say(f'ptxas, B2/K4 instances: {json.dumps(ptxas)}')
 
     measured = phase_kernels(torch, kernels)
-    launches, main_ms, ztd = phase_main_path(torch, kernels, measured['brick_integrate']['ms'])
+    launches, main_ms, ztd, main_ctx = phase_main_path(torch, kernels,
+                                                       measured['brick_integrate']['ms'])
     measured['brick_integrate']['main_path_ms'] = main_ms
     measured['ztd_totals']['get_ztd'] = ztd
     measured['ztd_totals']['ptxas'] = kernels.ptxas_resources('ztd_totals.cu')
@@ -2794,28 +3285,31 @@ def main() -> int:
     launches_k, prof = phase_profile(torch, kernels)
     launches_l, large = phase_large(torch, kernels)
     say(json.dumps({'large_cubes': large}))
-    launches_wx, launches_pt, launches_wf, launches_gg = phase_weather_models(torch, kernels)
+    launches_wx, launches_pt, launches_wf, launches_gg, launches_12 = phase_weather_models(
+        torch, kernels, main_ctx)
 
     record = {'kernels': [
         {'name': 'ztd_totals', 'route': 'cuda', 'source': 'raider_tpu_torch/csrc/ztd_totals.cu',
          'replaces': 'raider_tpu/ops/pallas_ztd.py:31',
          'launches': (launches['ztd_totals'] + launches_wx['ztd_totals']
                       + launches_pt['ztd_totals'] + launches_wf['ztd_totals']
-                      + launches_gg['ztd_totals']),
+                      + launches_gg['ztd_totals'] + launches_12['ztd_totals']),
          'launches_phase_8': launches_wx['ztd_totals'],
          'launches_phase_9': launches_pt['ztd_totals'],
          'launches_phase_10': launches_wf['ztd_totals'],
-         'launches_phase_11': launches_gg['ztd_totals'], **measured['ztd_totals']},
+         'launches_phase_11': launches_gg['ztd_totals'],
+         'launches_phase_12': launches_12['ztd_totals'], **measured['ztd_totals']},
         {'name': 'brick_integrate', 'route': 'cuda',
          'source': 'raider_tpu_torch/csrc/brick_integrate.cu',
          'replaces': 'raider_tpu/delay/raytrace.py:704',
          'launches': (launches['brick_integrate'] + launches_wx['brick_integrate']
                       + launches_pt['brick_integrate'] + launches_wf['brick_integrate']
-                      + launches_gg['brick_integrate']),
+                      + launches_gg['brick_integrate'] + launches_12['brick_integrate']),
          'launches_phase_8': launches_wx['brick_integrate'],
          'launches_phase_9': launches_pt['brick_integrate'],
          'launches_phase_10': launches_wf['brick_integrate'],
          'launches_phase_11': launches_gg['brick_integrate'],
+         'launches_phase_12': launches_12['brick_integrate'],
          **measured['brick_integrate'], 'ptxas': ptxas.get('f32 3x3')},
         {'name': 'window_integrate', 'route': 'cuda',
          'source': 'raider_tpu_torch/csrc/window_integrate.cu',
@@ -2841,7 +3335,8 @@ def main() -> int:
          'source': 'raider_tpu_torch/csrc/brick_integrate.cu',
          'replaces': 'raider_tpu/delay/raytrace.py:704',
          'launches': launches_k['brick_integrate_i16'],
-         'launches_midcube': launches_l['brick_integrate_i16'], **prof['brick_integrate_i16'],
+         'launches_midcube': launches_l['brick_integrate_i16'],
+         'launches_phase_12': launches_12['brick_integrate_i16'], **prof['brick_integrate_i16'],
          'ptxas': ptxas.get('i16 3x3')},
     ]}
     say(json.dumps(record))

@@ -24,9 +24,20 @@ files, radar and geocoded rasters: the cube, sampled at the points by an
 The steps are timed by ``utils.profiling.stage`` under the JAX package's
 stage names (that module's docstring says how they nest).
 
+Several devices (``parallel``): ``mesh`` (a ``parallel.Mesh``, by default
+``parallel.default_mesh``: every CUDA device for a bare 'cuda', else the
+request's device alone) splits the zenith cube's output rows and each
+raytraced slice's rays over its shards (the table replicated on each
+distinct device once; the slice's plan is built from all its rays before
+the split, so a sharded cube equals the unsharded one bit for bit), or,
+where ``parallel.zshard_auto`` says so (``zshard``: 'auto', True or
+False), integrates each slice against a table packed once in z-slabs over
+the shards. One device is a mesh of one shard: every mesh size runs the
+same code.
+
 The JAX package's device-geometry session (cube-global static plan and
-deferred redo) is ROADMAP A2; its int16 result stream, fetch batching and
-sharding are not ported (ROADMAP "Not to port" says why).
+deferred redo) is ROADMAP A2; its int16 result stream and fetch batching
+are not ported (ROADMAP "Not to port" says why).
 """
 
 import datetime as dt
@@ -37,7 +48,7 @@ import numpy as np
 import torch
 
 from raider_tpu_torch.constants import MAX_SEGMENT_LENGTH
-from raider_tpu_torch.delay.raytrace import integrate_rays, pack_cubes
+from raider_tpu_torch.delay.raytrace import _np_dtype, integrate_rays, pack_cubes, pack_mode_for
 from raider_tpu_torch.geodesy import (Geocentric, Geographic, crs_from_cf, crs_from_user, get_Re,
                                       transform_points)
 from raider_tpu_torch.geodesy.ellipsoid import lla2ecef
@@ -46,7 +57,12 @@ from raider_tpu_torch.geometry.los import LOS
 from raider_tpu_torch.geometry.rays import build_ray, level_heights
 from raider_tpu_torch.io import Dataset, Variable, read_nc
 from raider_tpu_torch.logger import logger
-from raider_tpu_torch.ops import grid_weights, interp3d_points, interp3d_separable
+from raider_tpu_torch.ops import contract_yx, contract_z, grid_weights, interp3d_points
+from raider_tpu_torch.parallel.mesh import (Mesh, default_mesh, gather_rays, place_ray_arrays,
+                                            process_group_size, process_rank, replicate,
+                                            shard_rays)
+from raider_tpu_torch.parallel.zshard import (integrate_rays_z_sharded, pack_cube_slabs,
+                                              zshard_auto)
 from raider_tpu_torch.utils import require_device
 from raider_tpu_torch.utils.profiling import stage
 
@@ -97,6 +113,9 @@ def tropo_delay(
     compute_dtype=None,
     *,
     device='cuda',
+    mesh: Optional[Mesh] = None,
+    zshard: Union[str, bool] = 'auto',
+    zshard_budget_gb: float = 10.0,
 ):
     """Delays on an AOI: (Dataset, None) for a cube-type AOI (``BoundingBox``,
     ``Geocube``), else (wet, hydro) host numpy arrays at the AOI's points.
@@ -107,9 +126,16 @@ def tropo_delay(
     ``compute_dtype`` (of the delay kernels) defaults to float32 on CUDA and
     float64 on the CPU, like the JAX package's accelerator/CPU default.
     ``height_levels`` default to a Geocube's heights, else the model's
-    levels.
+    levels. ``mesh`` shards the cube builders over several devices (by
+    default ``parallel.default_mesh(device)``: every CUDA device for a bare
+    'cuda', else ``device`` alone) and ``zshard``
+    ('auto', True, False) with ``zshard_budget_gb`` chooses z-slab tables
+    (the JAX package's ``RAIDER_TPU_ZSHARD`` and
+    ``RAIDER_TPU_ZSHARD_BUDGET_GB``).
     """
     device = require_device(device)
+    if mesh is None:
+        mesh = default_mesh(device)
     if compute_dtype is None:
         compute_dtype = torch.float32 if device.type == 'cuda' else torch.float64
     compute_dtype = torch_dtype(compute_dtype)
@@ -126,7 +152,8 @@ def tropo_delay(
         logger.warning('Requested integration height (zref) is higher than top of weather '
                        f'model. Forcing to top ({toa}).')
     ds = _get_delays_on_cube(datetime, wm, weather_model_file, aoi, height_levels, los, crs,
-                             zref, compute_dtype=compute_dtype)
+                             zref, compute_dtype=compute_dtype, mesh=mesh, zshard=zshard,
+                             zshard_budget_gb=zshard_budget_gb)
     if isinstance(aoi, (BoundingBox, Geocube)):
         return ds, None
 
@@ -171,7 +198,8 @@ def _delays_at_points(ds: Dataset, lat, lon, hgt, crs, compute_dtype):
 
 
 def _get_delays_on_cube(datetime, wm: WeatherCube, weather_model_file, aoi, heights, los,
-                        crs, zref, compute_dtype=torch.float64):
+                        crs, zref, compute_dtype=torch.float64, mesh: Optional[Mesh] = None,
+                        zshard: Union[str, bool] = 'auto', zshard_budget_gb: float = 10.0):
     """Build the delay cube and its Dataset."""
     zpts = np.array(heights, dtype=np.float64)
     if not hasattr(aoi, 'xpts'):
@@ -187,40 +215,72 @@ def _get_delays_on_cube(datetime, wm: WeatherCube, weather_model_file, aoi, heig
         out_type = 'zenith' if los.is_Zenith() else 'slant - projected'
         with stage('delay.ztd_cube'):
             wet, hydro = _build_cube(wm, aoi.xpts, aoi.ypts, zpts, crs,
-                                     ('wet_total', 'hydro_total'), compute_dtype)
+                                     ('wet_total', 'hydro_total'), compute_dtype, mesh=mesh)
     else:
         out_type = 'slant - raytracing'
         with stage('delay.raytrace_cube'):
             wet, hydro = _build_cube_ray(wm, aoi.xpts, aoi.ypts, zpts, los, crs, zref=zref,
-                                         compute_dtype=compute_dtype)
+                                         compute_dtype=compute_dtype, mesh=mesh,
+                                         zshard=zshard, zshard_budget_gb=zshard_budget_gb)
     if np.isnan(wet).any() or np.isnan(hydro).any():
         logger.critical('There are missing delay values. Check your inputs.')
     return writeResultsToDataset(datetime, aoi.xpts, aoi.ypts, zpts, crs, wet, hydro,
                                  weather_model_file, out_type)
 
 
-def _build_cube(wm: WeatherCube, xpts, ypts, zpts, pts_crs, fields, compute_dtype):
+# output rows of the zenith cube's separable contractions a block
+ZENITH_ROW_BLOCK = 256
+
+
+def _build_cube(wm: WeatherCube, xpts, ypts, zpts, pts_crs, fields, compute_dtype,
+                mesh: Optional[Mesh] = None):
     """Zenith cube: the integrated-delay fields on the output grid, all
-    height levels at once; returns host numpy (z, y, x) arrays."""
+    height levels at once; returns host numpy (z, y, x) arrays. The output
+    rows are split over the mesh's shards (by default the cube's device
+    alone), the cubes replicated. The separable path contracts z once on
+    the cube's device, then y and x in blocks of ``ZENITH_ROW_BLOCK`` rows,
+    whole blocks a shard: every mesh size runs the same contractions (a
+    GEMM's bits depend on its shape), so a sharded cube is the unsharded
+    one bit for bit."""
+    mesh = mesh or Mesh((wm.device,))
     cubes = [wm.field(f, compute_dtype) for f in fields]
     # the separable path touches every cube entry per contraction line, so a
     # single NaN would poison whole rows: it needs NaN-free cubes
     if wm.crs == pts_crs and not any(bool(torch.isnan(c).any()) for c in cubes):
-        w_y = grid_weights(wm.ys, ypts)
-        w_x = grid_weights(wm.xs, xpts)
+        w_y, w_x = (torch.as_tensor(grid_weights(a, p), dtype=compute_dtype, device=wm.device)
+                    for a, p in ((wm.ys, ypts), (wm.xs, xpts)))
         w_z = grid_weights(wm.zs, zpts)
-        return [interp3d_separable(c, w_z, w_y, w_x).cpu().numpy() for c in cubes]
+        blocks = [(lo, min(lo + ZENITH_ROW_BLOCK, len(ypts)))
+                  for lo in range(0, len(ypts), ZENITH_ROW_BLOCK)]
+        first = process_rank() * mesh.size
+        mine = np.array_split(np.arange(len(blocks)),
+                              mesh.size * process_group_size())[first:first + mesh.size]
+        out = []
+        for c in cubes:
+            parts = [contract_yx(zc, wy[blocks[k][0]:blocks[k][1]], wx)
+                     for (zc, wy, wx), ks in zip(replicate((contract_z(c, w_z), w_y, w_x), mesh),
+                                                 mine) for k in ks]
+            out.append(gather_rays(parts or [c.new_empty((len(zpts), 0, len(xpts)))],
+                                   len(ypts), mesh, dim=1))
+        return out
 
+    # the gather path: the (y, x) grid in the model CRS, its rows split over
+    # the shards, each shard's rows broadcast over the heights
     dev = wm.device
     xx, yy = np.meshgrid(xpts, ypts)
     lon, lat = pts_crs.inverse(torch.as_tensor(xx, device=dev), torch.as_tensor(yy, device=dev))
     mx, my = wm.crs.forward(lon, lat)
-    shape = (zpts.size,) + tuple(my.shape)
-    pts_y = my.to(compute_dtype).expand(shape)
-    pts_x = mx.to(compute_dtype).expand(shape)
-    pts_z = torch.as_tensor(zpts, dtype=compute_dtype, device=dev)[:, None, None].expand(shape)
-    return [interp3d_points(c, wm.ys, wm.xs, wm.zs, pts_y, pts_x, pts_z).cpu().numpy()
-            for c in cubes]
+    (py, px), n_y = place_ray_arrays([my.to(compute_dtype), mx.to(compute_dtype)], 0, mesh)
+    zz = torch.as_tensor(zpts, dtype=compute_dtype)[:, None, None]
+    out = []
+    for c in cubes:
+        parts = []
+        for c_d, y_d, x_d in zip(replicate(c, mesh), py, px):
+            shape = (zpts.size,) + tuple(y_d.shape)
+            parts.append(interp3d_points(c_d, wm.ys, wm.xs, wm.zs, y_d.expand(shape),
+                                         x_d.expand(shape), zz.to(y_d.device).expand(shape)))
+        out.append(gather_rays(parts, n_y, mesh, dim=1))
+    return out
 
 
 def _nanmax_rows(a: torch.Tensor) -> np.ndarray:
@@ -272,26 +332,58 @@ def _slice_geometry(wm: WeatherCube, lat, lon, ht: float, los, zref: float):
 
 def _build_cube_ray(wm: WeatherCube, xpts, ypts, zpts, los, pts_crs, zref,
                     compute_dtype=torch.float64,
-                    max_segment_length: float = MAX_SEGMENT_LENGTH):
+                    max_segment_length: float = MAX_SEGMENT_LENGTH,
+                    mesh: Optional[Mesh] = None, zshard: Union[str, bool] = 'auto',
+                    zshard_budget_gb: float = 10.0):
     """Raytraced cube: float64 geometry and the integrate per output height,
     on the weather cube's device. The table is packed once in the mode
     ``pack_mode_for`` picks for the cube; an int16 mode's ``(table, deq)``
-    pair rides into every slice's ``integrate_rays``. Returns host float64
-    (z, y, x) arrays (wet, hydro)."""
+    pair rides into every slice's ``integrate_rays``. Either the table is
+    packed once in z-slabs over the mesh's shards (where ``zshard_auto``
+    says so) and each slice integrated by ``integrate_rays_z_sharded``, or
+    each slice's rays are split over the shards by ``shard_rays`` (the
+    cube's device alone when the mesh has fewer than 8 pixels a shard), its
+    plan built from all of them. Returns host float64 (z, y, x) arrays
+    (wet, hydro)."""
     compute_dtype = torch_dtype(compute_dtype)
+    mesh = mesh or Mesh((wm.device,))
     dev = wm.device
     cube_wet = wm.field('wet', compute_dtype)
     cube_hydro = wm.field('hydro', compute_dtype)
     # the kernel's axes carry the same origin shift as the boundary points
     ys_k = wm.ys - wm.ys[0]
     xs_k = wm.xs - wm.xs[0]
-    packed2d, pack_mode = pack_cubes(cube_wet, cube_hydro, grouped=True)
-
+    n_shards = mesh.size * process_group_size()
+    pack_mode = pack_mode_for(cube_wet.shape, _np_dtype(cube_wet), grouped=True)
     xx, yy = np.meshgrid(xpts, ypts)
+    npix = xx.size
+    if zshard_auto(cube_wet.shape, compute_dtype, pack_mode, n_shards,
+                   force=None if zshard == 'auto' else bool(zshard),
+                   budget_gb=zshard_budget_gb):
+        slabs = pack_cube_slabs(cube_wet, cube_hydro, pack_mode, mesh.size, mesh=mesh)
+
+        def integrate(*rays, per_level_max, plan):
+            return integrate_rays_z_sharded(cube_wet, cube_hydro, ys_k, xs_k, wm.zs, *rays,
+                                            per_level_max, max_segment_length, mode=pack_mode,
+                                            mesh=mesh, packed=slabs)
+    else:
+        table, _ = pack_cubes(cube_wet, cube_hydro, mode=pack_mode)
+
+        def per_shard(by, bx, bz, d2, rl, re, table, per_level_max, plan):
+            return integrate_rays(cube_wet, cube_hydro, ys_k, xs_k, wm.zs, by, bx, bz, d2, rl,
+                                  re, per_level_max, max_segment_length, packed2d=table,
+                                  mode=pack_mode, **plan)
+        ray_mesh = mesh if npix >= 8 * n_shards else Mesh(mesh.devices[:1])
+        sharded = shard_rays(per_shard, ray_mesh, ray_axis_argnums={0: 1, 1: 1, 2: 1, 3: 1, 4: 1,
+                                                                    5: 0})
+
+        def integrate(*rays, per_level_max, plan):
+            return sharded(*rays, table, per_level_max, plan)
+
     lon, lat = pts_crs.inverse(torch.as_tensor(xx.ravel(), dtype=torch.float64, device=dev),
                                torch.as_tensor(yy.ravel(), dtype=torch.float64, device=dev))
     re_local = get_Re(lat).to(compute_dtype)
-    out = torch.zeros((2, zpts.size, yy.size), dtype=torch.float64, device=dev)
+    out = torch.zeros((2, zpts.size, npix), dtype=torch.float64, device=dev)
     for hh, ht in enumerate(zpts):
         logger.info(f'Processing slice {hh + 1} / {len(zpts)}: {ht}')
         with stage('raytrace.device_geometry', log=False):
@@ -301,14 +393,12 @@ def _build_cube_ray(wm: WeatherCube, xpts, ypts, zpts, los, pts_crs, zref,
             continue
         rays = [geom[k].to(compute_dtype) for k in ('bnd_y', 'bnd_x', 'bnd_z', 'd2', 'ray_len')]
         with stage('raytrace.integrate', log=False):
-            w, h = integrate_rays(cube_wet, cube_hydro, ys_k, xs_k, wm.zs, *rays, re_local,
-                                  geom['per_level_max'], max_segment_length,
-                                  packed2d=packed2d, mode=pack_mode,
-                                  heights=geom['heights'], hstep_max=geom['hstep_max'])
-        out[0, hh] = w
-        out[1, hh] = h
+            out[0, hh], out[1, hh] = integrate(
+                *rays, re_local, per_level_max=geom['per_level_max'],
+                plan=dict(heights=geom['heights'], hstep_max=geom['hstep_max']))
     with stage('raytrace.final_fetch', log=False):
-        out = out.reshape(2, zpts.size, ypts.size, xpts.size).cpu().numpy()
+        # every process holds every slice whole (gathered or summed above)
+        out = out.cpu().numpy().reshape(2, zpts.size, ypts.size, xpts.size)
     return out[0], out[1]
 
 

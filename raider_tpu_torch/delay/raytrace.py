@@ -685,13 +685,19 @@ def static_brick_ref(table2d, bnd_y, bnd_x, bnd_z, d2, ray_len, re_local, groups
 
 def _integrate_packed(packed2d, bnd_y, bnd_x, bnd_z, d2, ray_len, re_local,
                       coord_lvl, fracs, wa_lvl, wa, wb_lvl, wb, ys, xs, zs,
-                      z_clip: bool = True, mode: str = 'pack16', deq=None):
+                      z_clip: bool = True, mode: str = 'pack16', deq=None, slab=None):
     """The pack16 / pack16_i16 / pack4 integrate (the JAX ``_integrate_packed``,
     plain torch): per point of the plan, the segment lerp and sagitta,
     locate in y, x and z, one pack16 row gather (decoded with ``deq`` for
     pack16_i16) or four pack4 row gathers, the trilinear mix and the
     trapezoid weight. The plan's numbers are tensors of the compute dtype,
-    as the JAX scan carries them. Returns (wet (N,), hydro (N,))."""
+    as the JAX scan carries them. Returns (wet (N,), hydro (N,)).
+
+    ``slab`` = (z_lo, z_hi) integrates against one z-slab table of
+    ``parallel.zshard`` (the rows of z anchors [z_lo, z_hi), plus one halo
+    plane for pack4): row indices shift by the slab's first anchor and clip
+    to the table, and a sample adds its contribution, after the NaN rule,
+    only where its z cell lies in the slab (0 elsewhere)."""
     cdt = deq.dtype if deq is not None else packed2d.dtype
     dev = packed2d.device
     ys_np, xs_np, zs_np = (np.asarray(a) for a in (ys, xs, zs))
@@ -701,7 +707,9 @@ def _integrate_packed(packed2d, bnd_y, bnd_x, bnd_z, d2, ray_len, re_local,
     ff_t, ca_t, cb_t = (torch.as_tensor(np.asarray(a), dtype=cdt, device=dev)
                         for a in (fracs, wa, wb))
     n = bnd_y.shape[1]
+    n_rows = packed2d.shape[0]
     nan = torch.tensor(float('nan'), dtype=cdt, device=dev)
+    zero = torch.zeros((), dtype=cdt, device=dev)
     if mode == 'pack16_i16':
         sc, of = _i16_column_deq(16, deq, cdt)
     acc_w = torch.zeros(n, dtype=cdt, device=dev)
@@ -723,9 +731,12 @@ def _integrate_packed(packed2d, bnd_y, bnd_x, bnd_z, d2, ray_len, re_local,
         ix, fx, bx = _locate(xs_np, px)
         iz, fz, bz = _locate(zs_np, pz)
         lin = (iz * ny + iy) * nx + ix
+        if slab is not None:
+            own = (iz >= slab[0]) & (iz < slab[1])
+            lin = lin - slab[0] * ny * nx
         fy, fx, fz = fy.to(cdt), fx.to(cdt), fz.to(cdt)
         if mode in ('pack16', 'pack16_i16'):
-            g = packed2d.index_select(0, lin)
+            g = packed2d.index_select(0, _rows(lin, slab, n_rows))
             if mode == 'pack16_i16':
                 g = torch.where(g == _I16_NAN, nan, g.to(cdt) * sc + of)
             w00 = (1 - fy) * (1 - fx)
@@ -738,7 +749,7 @@ def _integrate_packed(packed2d, bnd_y, bnd_x, bnd_z, d2, ray_len, re_local,
             hhi = g[:, 9] * w00 + g[:, 11] * w01 + g[:, 13] * w10 + g[:, 15] * w11
         elif mode == 'pack4':
             def xl(rows):
-                g = packed2d.index_select(0, rows)
+                g = packed2d.index_select(0, _rows(rows, slab, n_rows))
                 return g[:, 0] * (1 - fx) + g[:, 2] * fx, g[:, 1] * (1 - fx) + g[:, 3] * fx
 
             w00v, h00v = xl(lin)
@@ -755,9 +766,18 @@ def _integrate_packed(packed2d, bnd_y, bnd_x, bnd_z, d2, ray_len, re_local,
         vw = torch.where(ok, wlo * (1 - fz) + whi * fz, nan)
         vh = torch.where(ok, hlo * (1 - fz) + hhi * fz, nan)
         wt = 1.0e-6 * rl
-        acc_w = acc_w + (wt * vw).to(cdt)
-        acc_h = acc_h + (wt * vh).to(cdt)
+        dw, dh = wt * vw, wt * vh
+        if slab is not None:
+            dw, dh = torch.where(own, dw, zero), torch.where(own, dh, zero)
+        acc_w = acc_w + dw.to(cdt)
+        acc_h = acc_h + dh.to(cdt)
     return acc_w, acc_h
+
+
+def _rows(lin, slab, n_rows: int):
+    """Row indices into a table; a slab's are clipped to its rows (those of
+    a sample outside the slab are read and then masked)."""
+    return lin if slab is None else lin.clamp(0, n_rows - 1)
 
 
 def slice_plan(cube_shape, table_dtype, ys, xs, zs, ray_lengths_max, heights, hstep_max,

@@ -1,6 +1,8 @@
 """Device compute primitives: interpolation, integration, the ZTD kernel."""
 
 from raider_tpu_torch.ops.interp import (  # noqa: F401
+    contract_yx,
+    contract_z,
     grid_weights,
     interp3d_points,
     interp3d_separable,

@@ -158,16 +158,35 @@ def interp3d_separable(cube_zyx, w_z, w_y, w_x):
     ``precision='highest'`` does: a float32 cube on the GPU is refused while
     TF32 matmuls are allowed (``torch.backends.cuda.matmul.allow_tf32`` or a
     float32 matmul precision other than 'highest'), because TF32 keeps about
-    three decimal digits.
+    three decimal digits. :func:`contract_z` and :func:`contract_yx` are its
+    two halves.
     """
-    if (cube_zyx.is_cuda and cube_zyx.dtype == torch.float32
+    return contract_yx(contract_z(cube_zyx, w_z), w_y, w_x)
+
+
+def contract_z(cube_zyx, w_z):
+    """The first contraction of :func:`interp3d_separable`:
+    out[l, b, a] = W_z[l, c] cube[c, b, a]."""
+    w_z, = _weights(cube_zyx, w_z)
+    return torch.einsum('zyx,az->ayx', cube_zyx, w_z)
+
+
+def contract_yx(cube_lyx, w_y, w_x):
+    """The other two contractions of :func:`interp3d_separable`:
+    out[l, j, i] = W_y[j, b] W_x[i, a] cube[l, b, a]. Each output row needs
+    only its own row of ``w_y``, so the rows may be computed in blocks."""
+    w_y, w_x = _weights(cube_lyx, w_y, w_x)
+    out = torch.einsum('ayx,by->abx', cube_lyx, w_y)
+    return torch.einsum('abx,cx->abc', out, w_x)
+
+
+def _weights(cube, *ws):
+    """The weights as tensors of the cube's dtype on its device, after the
+    full-fp32 check of :func:`interp3d_separable`."""
+    if (cube.is_cuda and cube.dtype == torch.float32
             and (torch.backends.cuda.matmul.allow_tf32
                  or torch.get_float32_matmul_precision() != 'highest')):
         raise RuntimeError('interp3d_separable needs full-fp32 matmuls: set '
                            'torch.backends.cuda.matmul.allow_tf32 = False and '
                            "torch.set_float32_matmul_precision('highest')")
-    dt, dev = cube_zyx.dtype, cube_zyx.device
-    w_z, w_y, w_x = (torch.as_tensor(w, dtype=dt, device=dev) for w in (w_z, w_y, w_x))
-    out = torch.einsum('zyx,az->ayx', cube_zyx, w_z)
-    out = torch.einsum('ayx,by->abx', out, w_y)
-    return torch.einsum('abx,cx->abc', out, w_x)
+    return [torch.as_tensor(w, dtype=cube.dtype, device=cube.device) for w in ws]

@@ -22,6 +22,7 @@ a second its finest value needs.
 """
 
 import csv
+import io
 import math
 from typing import Dict, Iterable, List, Optional, Sequence
 
@@ -67,13 +68,44 @@ def float_text(value, dtype=np.float64) -> str:
 def parse_datetimes(texts: Iterable[str]) -> np.ndarray:
     """ISO dates or date-times (``2020-01-30``, ``2020-01-30 12:00:00``) as
     datetime64[ns], NaT where empty."""
+    texts = list(texts)
+    try:
+        # numpy's own parse of the whole column (an empty field is NaT);
+        # any other missing-value text is left to the field-by-field parse
+        return np.char.replace(np.char.strip(np.asarray(texts, dtype=str)), ' ', 'T').astype(
+            'datetime64[ns]')
+    except ValueError:
+        pass
     out = [np.datetime64('NaT') if t.strip() in NA_VALUES
            else np.datetime64(t.strip().replace(' ', 'T'), 'ns') for t in texts]
     return np.array(out, dtype='datetime64[ns]')
 
 
+def _parse_numbers(texts: List[str]) -> Optional[np.ndarray]:
+    """A column of numbers without a missing value, parsed in one pass (by
+    ``int()``, else ``float()``, as the field-by-field path parses); None
+    for any other column."""
+    if not texts or '_' in ''.join(texts):
+        return None
+    try:
+        return np.fromiter(map(int, texts), np.int64, len(texts))
+    except OverflowError:
+        return None
+    except ValueError:
+        pass
+    try:
+        f = np.fromiter(map(float, texts), np.float64, len(texts))
+    except ValueError:
+        return None
+    # 'nan' and 'NaN' parse, and are missing values: the field-by-field path
+    return None if np.isnan(f).any() else f
+
+
 def parse_column(texts: List[str]) -> np.ndarray:
     """A column's text fields as the array pandas' read_csv makes of them."""
+    fast = _parse_numbers(texts)
+    if fast is not None:
+        return fast
     kind = column_kind(texts) if texts else 'str'
     if kind == 'int':
         return np.array([int(v.strip()) for v in texts], dtype=np.int64)
@@ -89,22 +121,44 @@ def read_csv(path, parse_dates: Sequence[str] = ()) -> Table:
     header raises ``ValueError`` (pandas' ``ParserError`` is one), as does a
     ``parse_dates`` column the file lacks."""
     with open(path, newline='') as f:
-        rows = [r for r in csv.reader(f) if r]
-    if not rows:
-        raise ValueError(f'No columns to parse from file {path}')
-    header, rows = rows[0], rows[1:]
-    for i, r in enumerate(rows):
-        if len(r) > len(header):
-            raise ValueError(f'Error tokenizing data. Expected {len(header)} fields in line '
-                             f'{i + 2}, saw {len(r)}')
+        text = f.read()
+    columns = _plain_columns(text)
+    if columns is None:
+        rows = [r for r in csv.reader(io.StringIO(text)) if r]
+        if not rows:
+            raise ValueError(f'No columns to parse from file {path}')
+        header, rows = rows[0], rows[1:]
+        width = len(header)
+        for i, r in enumerate(rows):
+            if len(r) > width:
+                raise ValueError(f'Error tokenizing data. Expected {width} fields in line '
+                                 f'{i + 2}, saw {len(r)}')
+        rows = [r + [''] * (width - len(r)) for r in rows]
+        columns = [header] + [list(c) for c in zip(*rows)] if rows else [header] + [[]] * width
+    header, columns = columns[0], columns[1:]
     for name in parse_dates:
         if name not in header:
             raise ValueError(f"Missing column provided to 'parse_dates': '{name}'")
-    out = {}
-    for j, name in enumerate(header):
-        texts = [r[j] if j < len(r) else '' for r in rows]
-        out[name] = parse_datetimes(texts) if name in parse_dates else parse_column(texts)
-    return out
+    return {name: parse_datetimes(texts) if name in parse_dates else parse_column(texts)
+            for name, texts in zip(header, columns)}
+
+
+def _plain_columns(text: str) -> Optional[list]:
+    """[header, column, column, ...] of a CSV text without quotes, carriage
+    returns or NULs whose every row has the header's field count (the
+    csv module's reading of it); None for any other text."""
+    if '"' in text or '\r' in text or '\0' in text:
+        return None
+    lines = [ln for ln in text.split('\n') if ln]
+    if not lines:
+        return None
+    commas = lines[0].count(',')
+    if any(ln.count(',') != commas for ln in lines):
+        return None
+    header = lines[0].split(',')
+    fields = ','.join(lines[1:]).split(',') if len(lines) > 1 else []
+    width = commas + 1
+    return [header] + [fields[j::width] for j in range(width)]
 
 
 def n_rows(t: Table) -> int:

@@ -2,5 +2,5 @@
 config (``config``, ``check_args``, ``yaml_subset``), Sentinel-1 timing
 (``s1_timing``), the DEM helpers (``dem``) that the AOIs use, the GUNW
 workflow (``gunw``, with the S3 helpers of ``aws``), the GNSS download and
-combine tools (``gnss``, ``gnss_combine``) and the GACOS headers
-(``gacos``)."""
+combine tools (``gnss``, ``gnss_combine``), the GACOS headers
+(``gacos``) and raiderStats (``stats``, its map overlay ``coastlines``)."""

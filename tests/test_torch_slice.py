@@ -347,6 +347,31 @@ _NO_JAX_SCRIPT = textwrap.dedent('''
         got = table.read_csv(os.path.join(tmp, 'S00000_ztd.csv'))
         assert list(got['times']) == [43200] and np.isfinite(got['ZTD']).all()
     assert 'delay.raytrace_cube' in profiling.stage_report()
+    # raiderStats (its figures raise without matplotlib, after every other
+    # product), the coastlines, ray sharding and z-slab tables
+    from raider_tpu_torch.parallel import get_mesh, zshard
+    from raider_tpu_torch.scripts import stats_inputs
+    from raider_tpu_torch.workflows import coastlines, stats
+    with tempfile.TemporaryDirectory() as tmp:
+        csv = os.path.join(tmp, 'c.csv')
+        stats_inputs.write_combined_csv(csv, n_stations=12, n_days=40, n_short=0, seed=1)
+        try:
+            stats.stats_analyses(['-f', csv, '-w', tmp, '-grid_delay_absolute_median',
+                                  '-grid_to_raster', '-variogramplot'], device='cpu')
+            raise AssertionError('a figure was drawn without matplotlib')
+        except ImportError as exc:
+            assert 'matplotlib' in str(exc)
+        assert all(os.path.exists(os.path.join(tmp, f)) for f in (
+            'grid_absolute_median.tif', 'variogram_sill.npy', 'variogram_range.npy'))
+    assert len(coastlines.COASTLINES) >= 15
+    for zs_mode in (False, True):
+        out, _ = tropo_delay(t0, ds, BoundingBox([33.2, 33.8, -118.0, -117.4],
+                                                 cube_spacing_in_m=8000.0),
+                             Raytracing(orbit=orbit, time=t0), height_levels=[0.0],
+                             device='cpu', mesh=get_mesh(devices=('cpu',) * 4),
+                             zshard=zs_mode)
+        assert np.isfinite(out['wet'].data).all()
+    assert zshard.zshard_auto((137, 1801, 3600), np.float32, 'pack4', 8)
     assert not any(m in ('jax', 'pandas', 'h5py', 'yaml', 'matplotlib', 'boto3', 'requests')
                    or m.startswith(('jax.', 'raider_tpu.', 'yaml.', 'matplotlib.', 'boto3.',
                                     'requests.'))
@@ -368,7 +393,10 @@ def test_entry_points_default_to_the_card():
     from raider_tpu_torch.wx.base import WeatherModel
     from raider_tpu_torch.wx.process import prepareWeatherModel
 
+    from raider_tpu_torch.workflows import stats
+
     for fn in (t_engine.tropo_delay, WeatherModel.load, integrate_rays_windowed,
+               stats.RaiderStats.__init__, stats.stats_analyses, stats.load_gridfile,
                kernel_profile.run, kernel_profile.build_scene, prepareWeatherModel,
                raw_weather.write, raw_weather.write_hrrr, raw_weather.write_ecmwf,
                raw_weather.write_hqpt, raw_weather.write_wrfout):
